@@ -8,7 +8,7 @@ input against the CPU reference path.
 
 Phases (each prints a few lines; any failure raises and exits non-zero):
   1. device: CUDA required; card name and power limit from nvidia-smi.
-  2. build: both kernels from cnrma_torch/csrc through nvcc.
+  2. build: every kernel source in cnrma_torch/csrc through nvcc.
   3. volume kernel vs plain at the full_ship shape (50 views of
      [120, 160, 32], 256x256x96 voxels at 4 cm), fp32 and bf16.
   4. coarse-march kernel vs plain at the full_ship shape (19,200 rays per
@@ -21,12 +21,29 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
   6. reference: a tiny scene in fp32 on the GPU (kernels) and on the CPU
      (plain versions), same parameters and draw; TSDFs, points and boxes
      must agree.
-The line before the last is the kernel table as JSON; the last line is the
-device record.
+  7. probes: the three probe tools (``cnrma_torch.tools.bp_probe bench``,
+     ``gather_probe``, ``feature_probe``) at their bench shapes, with the
+     launch counts set to 0 before and read after; then each of their
+     kernels against its plain version (tolerance 0: every one is a copy,
+     a gather or an exact product) and timed beside it and beside the one
+     PyTorch call that computes the same function, where there is one.
+  8. device time: every kernel's device time per call in a
+     ``torch.profiler`` trace (``device_ms``: its own ``__global__``
+     function only), and its library call's (``library_device_ms``: all
+     the call's device work); last, because a profiler session slows the
+     host's later launches.
+Every kernel row carries its bound: the larger of the bytes its function
+must move (each input read once, each output written once, counted from
+this run's data) over 3.35 TB/s and its operations over the peak rate of
+their type (H100 SXM data sheet).  Its ``ms`` is CUDA events around one
+call, so it holds the host's launch work, which dominates calls under
+~0.1 ms; ``device_ms`` leaves that out.  The line before the last is the
+kernel table as JSON; the last line is the device record.
 """
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -34,6 +51,12 @@ import time
 
 import numpy as np
 import torch
+
+from cnrma_torch.timing import time_ms
+
+# H100 SXM data sheet: HBM bytes/s, fp32 (outside the tensor cores) and
+# dense bf16 tensor-core operations/s
+PEAK = {"bytes": 3.35e12, "fp32": 67e12, "bf16_tensor": 989e12}
 
 FULL_SHIP = dict(voxel_dim=(256, 256, 96), voxel_size=0.04, views=50, h=480,
                  w=640, ray_samples=300, rays_cap=98304, max_points=500000,
@@ -44,19 +67,48 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_time_ms(fn, reps: int = 10) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up."""
+def device_ms(fn, kernel=None, reps: int = 10, tries: int = 5):
+    """Device time of one call of ``fn``: in a profiler trace of ``reps``
+    calls, the summed time of the device work over ``reps``, counting only
+    the ``__global__`` function named ``kernel`` where it is given (not the
+    wrapper's fills or copies).  Now and then a trace holds the launches
+    but no device event at all, in runs of one to three traces that
+    recur every few seconds (``python -m cnrma_torch.tools.trace_check``
+    counts them); such a trace is taken again, up to ``tries`` traces in
+    all.  None where none holds the kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    named = None if kernel is None else re.compile(rf"\b{kernel}\b")
     fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    for attempt in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not e.is_user_annotation
+                 and (named is None or named.search(e.name)))
+        if us > 0:
+            return us / reps / 1e3
+        log(f"[device time] trace {attempt + 1} of {kernel or 'library'} "
+            f"held no device time")
+    return None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def bound(nbytes: float, ops: float, ops_type: str = "fp32") -> dict:
+    """Least time the card could take: bytes over the memory rate or
+    operations over the peak rate of their type, whichever is larger."""
+    t_bytes = nbytes / PEAK["bytes"] * 1e3
+    t_ops = ops / PEAK[ops_type] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_device() -> str:
@@ -97,21 +149,27 @@ def full_ship_projections(dev) -> torch.Tensor:
     return torch.from_numpy(proj).to(dev)
 
 
-def phase_volume(dev) -> dict:
-    from cnrma_torch.ops import backproject as bp
+def volume_args(dev, dtype) -> tuple:
+    """The volume kernel's arguments at the full_ship shape: 50 views of
+    [120, 160, 32] features drawn from seed 0, one view left out."""
     c = FULL_SHIP
     v, h, w = c["views"], c["h"] // 4, c["w"] // 4
     proj = full_ship_projections(dev)
     proj[:, :2, :] /= 4
-    feats32 = torch.rand(v, h, w, 32, generator=torch.Generator(
-        device=dev).manual_seed(0), device=dev)
+    feats = torch.rand(v, h, w, 32, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev).to(dtype)
     view_valid = torch.ones(v, dtype=torch.bool, device=dev)
-    view_valid[v // 2] = False      # one view left out
+    view_valid[v // 2] = False
+    return (proj, feats, view_valid, c["voxel_dim"], c["voxel_size"],
+            (0.0, 0.0, 0.0))
+
+
+def phase_volume(dev) -> dict:
+    from cnrma_torch.ops import backproject as bp
     row = None
     for dtype, tol_name in ((torch.float32, "1e-6"),
                             (torch.bfloat16, "one bf16 ulp of the mean")):
-        args = (proj, feats32.to(dtype), view_valid, c["voxel_dim"],
-                c["voxel_size"], (0.0, 0.0, 0.0))
+        args = volume_args(dev, dtype)
         vol, cnt, ok = bp.volume_accum_cuda(*args)
         pvol, pcnt, pok = bp.volume_accum_plain(*args)
         torch.cuda.synchronize()
@@ -124,18 +182,53 @@ def phase_volume(dev) -> dict:
         if not bool((err <= tol).all()):
             raise AssertionError(f"volume kernel: error {err.max().item()} "
                                  f"beyond {tol_name} ({dtype})")
-        ms = cuda_time_ms(lambda: bp.volume_accum_cuda(*args))
-        plain_ms = cuda_time_ms(lambda: bp.volume_accum_plain(*args))
+        ms = time_ms(lambda: bp.volume_accum_cuda(*args), dev)
+        plain_ms = time_ms(lambda: bp.volume_accum_plain(*args), dev)
         log(f"[volume] {str(dtype)[6:]}: mask+counts equal, max|err| "
             f"{err.max().item():.3g} (tol {tol_name}); observed voxels "
             f"{ok.float().mean().item():.4f}, max views "
             f"{cnt.max().item():.0f}; kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms")
-        row = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms)
+        row = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+                   **bound(*volume_work(*args, cnt)))
+        log(f"[volume] {str(dtype)[6:]}: bound {row['bound_ms']:.4f} ms "
+            f"by {row['bound_by']}")
     return row            # the main path's dtype (bf16) is measured last
 
 
-def phase_coarse(dev) -> dict:
+def volume_work(proj, feats, view_valid, voxel_dim, voxel_size, origin,
+                cnt):
+    """(bytes, fp32 operations) of the volume function on these inputs.
+    Bytes: the feature rows some voxel reaches, the projections and view
+    flags, the volume, count and mask written.  Operations: 6 per voxel
+    (its centre), 21 per voxel and valid view (projection: 18, one
+    reciprocal, two products), 33 per view that sees a voxel (32 channel
+    sums and the count), 32 per observed voxel (the mean)."""
+    from cnrma_torch.ops import backproject as bp
+    V, H, W, C = feats.shape
+    n = cnt.numel()
+    esize = feats.element_size()
+    reached = 0
+    for v in range(V):
+        if not bool(view_valid[v]):
+            continue
+        flat, valid = bp.project_voxels(proj[v], voxel_dim, voxel_size,
+                                        origin, H, W)
+        seen = torch.zeros(H * W, dtype=torch.bool, device=feats.device)
+        seen[flat[valid]] = True
+        reached += int(seen.sum())
+    n_views = int(view_valid.sum())
+    nbytes = (reached * C * esize + proj.numel() * 4 + V
+              + n * C * esize + n * 4 + n)
+    ops = (6.0 * n + 21.0 * n * n_views + 33.0 * float(cnt.sum())
+           + 32.0 * int((cnt > 0).sum()))
+    return nbytes, ops
+
+
+def coarse_args(dev) -> tuple:
+    """The coarse-march kernel's arguments at the full_ship shape: the
+    rays (origin, directions) of each of the 50 views, then the occupancy
+    grid of a 0.5 m sphere TSDF and the march's constants."""
     from cnrma_torch.ops import ray_marching as rm
     from cnrma_torch.synthetic import sphere_tsdf
     c = FULL_SHIP
@@ -151,6 +244,14 @@ def phase_coarse(dev) -> dict:
     cell = vs * c["skip_factor"]
     origin = torch.zeros(3, device=dev)
     rays = [rm.get_ray_parameters(p, h, w) for p in proj]
+    return rays, occ, origin, t_one, step, n_coarse, cell
+
+
+def phase_coarse(dev) -> dict:
+    from cnrma_torch.ops import ray_marching as rm
+    c = FULL_SHIP
+    h, w = c["h"] // 4, c["w"] // 4
+    rays, occ, origin, t_one, step, n_coarse, cell = coarse_args(dev)
     hits, err = 0, 0.0
     for o, d in rays:
         got = rm.coarse_march_cuda(o, d, occ, origin, t_one, step, n_coarse,
@@ -168,15 +269,25 @@ def phase_coarse(dev) -> dict:
     if not 0.0 < share < 1.0:
         raise AssertionError(f"coarse march: degenerate hit share {share}")
     o, d = rays[0]
-    ms = cuda_time_ms(lambda: rm.coarse_march_cuda(
-        o, d, occ, origin, t_one, step, n_coarse, cell))
-    plain_ms = cuda_time_ms(lambda: rm.coarse_march_plain(
-        o, d, occ, origin, t_one, step, n_coarse, cell))
+    ms = time_ms(lambda: rm.coarse_march_cuda(
+        o, d, occ, origin, t_one, step, n_coarse, cell), dev)
+    plain_ms = time_ms(lambda: rm.coarse_march_plain(
+        o, d, occ, origin, t_one, step, n_coarse, cell), dev)
+    # work of the timed view: 15 fp32 operations per step taken (sample
+    # distance 3, and per axis a product, two sums and a division), j0 + 1
+    # steps on a ray that hits and n_coarse on one that misses; bytes: the
+    # directions, the grid, j0 and has_hit
+    j0, has_hit = rm.coarse_march_plain(o, d, occ, origin, t_one, step,
+                                        n_coarse, cell)
+    steps = float(torch.where(has_hit, j0 + 1, n_coarse).sum())
+    n = d.shape[0]
+    work = bound(12 + 12 * n + 12 + 4 * occ.numel() + 5 * n, 15.0 * steps)
     log(f"[coarse] {len(rays)} views x {h * w} rays, {n_coarse} steps, grid "
         f"{tuple(occ.shape)} ({occ.mean().item():.3f} occupied): j0/has_hit "
         f"equal; hit share {share:.4f}; kernel {ms:.4f} ms/view, plain "
-        f"{plain_ms:.4f} ms/view")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        f"{plain_ms:.4f} ms/view, bound {work['bound_ms']:.6f} ms/view by "
+        f"{work['bound_by']}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **work)
 
 
 def full_ship_model(dev):
@@ -351,6 +462,83 @@ def phase_reference(dev) -> None:
         raise AssertionError("GPU boxes disagree with the CPU reference")
 
 
+def phase_probes(dev):
+    """The probe tools' own path (their CLIs' functions at the bench
+    shapes), then each of their kernels against its plain version.  Gives
+    the kernel rows and, per row, the kernel and library calls."""
+    from cnrma_torch.tools import bp_probe, feature_probe, gather_probe
+    t0 = time.perf_counter()
+    tools = ((bp_probe, ["bench"]), (gather_probe, []), (feature_probe, []))
+    cases = [c for tool, _ in tools for c in tool.bench_cases(dev)]
+    for c in cases:
+        c.counter.launches = 0
+    for tool, argv in tools:
+        if tool.main(argv) != 0:
+            raise AssertionError(f"{tool.__name__} {argv} failed")
+    torch.cuda.synchronize()
+    launches = {c.name: c.counter.launches for c in cases}
+    log(f"[probes] launches in the probes' run: {launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"a probe kernel never launched: {launches}")
+    rows = []
+    for c in cases:
+        got, want = c.kernel(), c.plain()
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{c.name}: kernel gives {got.dtype} "
+                                 f"{tuple(got.shape)}, plain {want.dtype} "
+                                 f"{tuple(want.shape)}")
+        err = float((got.float() - want.float()).abs().max())
+        if err != 0.0:
+            raise AssertionError(f"{c.name}: max|err| {err} against the "
+                                 f"plain version (tolerance 0)")
+        lib_note = "no single torch call"
+        library_ms = None
+        if c.library is not None:
+            lib_err = float((c.library().float() - want.float()).abs().max())
+            library_ms = time_ms(c.library, dev)
+            lib_note = f"library {library_ms:.4f} ms (max|err| {lib_err:g})"
+        row = dict(name=c.name, route="cuda", source=c.source,
+                   replaces=c.replaces, launches=launches[c.name],
+                   max_abs_err=err, ms=time_ms(c.kernel, dev),
+                   plain_ms=time_ms(c.plain, dev),
+                   **bound(c.bytes, c.ops, c.ops_type), library_ms=library_ms)
+        log(f"[probes] {c.name}: equal to plain; kernel {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, {lib_note}; bound "
+            f"{row['bound_ms']:.6f} ms by {row['bound_by']} "
+            f"({c.bytes} B, {c.ops:.0f} ops)")
+        rows.append(row)
+    log(f"[probes] phase took {time.perf_counter() - t0:.1f} s")
+    return rows, [(c.symbol, c.kernel, c.library) for c in cases]
+
+
+def phase_device_time(dev, rows, probe_calls) -> None:
+    """Each kernel's device time per call (``device_ms``), and its library
+    call's where there is one, from profiler traces; K1 and K2 on the bf16
+    volume and first view of their phases, inputs made again here so that
+    no phase before holds them.  Last of all: once a profiler session has
+    run, CUPTI's launch callbacks stay on and slow every later launch on
+    the host, so host-timed phases come first."""
+    from cnrma_torch.ops import backproject as bp
+    from cnrma_torch.ops import ray_marching as rm
+    vol = volume_args(dev, torch.bfloat16)
+    rays, *grid = coarse_args(dev)
+    o, d = rays[0]
+    calls = [("volume_accum_kernel", lambda: bp.volume_accum_cuda(*vol),
+              None),
+             ("coarse_march_kernel", lambda: rm.coarse_march_cuda(o, d, *grid),
+              None),
+             *probe_calls]
+    for row, (symbol, kernel, library) in zip(rows, calls):
+        row["device_ms"] = device_ms(kernel, symbol)
+        row["library_device_ms"] = (None if library is None
+                                    else device_ms(library))
+        log(f"[device time] {row['name']}: kernel "
+            f"{fmt_ms(row['device_ms'])}, library "
+            f"{fmt_ms(row['library_device_ms'])}, bound "
+            f"{row['bound_ms']:.6f} ms")
+
+
 def main() -> None:
     name = phase_device()
     dev = torch.device("cuda", 0)
@@ -361,16 +549,19 @@ def main() -> None:
     phase_surface(dev, model, batch)
     del model, batch
     phase_reference(dev)
+    probes, probe_calls = phase_probes(dev)
     kernels = [
         dict(name="volume_accum", route="cuda",
              source="cnrma_torch/csrc/volume_accum.cu",
              replaces="cnrma_tpu/ops/pallas_bp.py:140",
-             launches=launches["volume_accum"], **vol),
+             launches=launches["volume_accum"], **vol, library_ms=None),
         dict(name="coarse_march", route="cuda",
              source="cnrma_torch/csrc/coarse_march.cu",
              replaces="cnrma_tpu/ops/pallas_ray.py:108",
-             launches=launches["coarse_march"], **coarse),
+             launches=launches["coarse_march"], **coarse, library_ms=None),
+        *probes,
     ]
+    phase_device_time(dev, kernels, probe_calls)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

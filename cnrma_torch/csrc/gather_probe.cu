@@ -1,0 +1,85 @@
+// Table gathers of the ray-march gather probe, at the shape of the fine
+// TSDF window lookup: a 192x192x80 fp32 table (11.8 MB) and 5.76M queries
+// (19,200 rays x 300 samples).
+//
+// Replaces the TPU kernels of tools/pallas_gather_probe.py:
+//   lane_gather  <- pl_lane_true:  out[i, j] = T[idx[i, j], j]   (T [R, L])
+//   flat_gather  <- pl_lane_bcast: out[q] = T.ravel()[idx[q]]
+// An index outside the table gives 0 (the probe draws none).  The TPU
+// kernels exist to test Mosaic's in-VMEM dynamic_gather; pl_lane_bcast also
+// replicates each result over 128 lanes, which was the TPU's layout and is
+// dropped: flat_gather returns the [NQ] vector the probe keeps.
+//
+// Design: one thread per output element, neighbouring threads on
+// neighbouring outputs, so index reads and result writes are coalesced.
+// The table is too large for shared memory (227 KB a block) and is read
+// through L2 (50 MB), where it stays resident across launches, as it would
+// for the ray march.  lane_gather's reads are coalesced too when a warp's
+// rows agree; flat_gather's are random 4-byte reads from L2.
+//
+// Bound on the H100: bytes.  lane_gather moves idx and out (11.8 MB each)
+// and the table elements the indices reach; flat_gather the 23 MB of
+// indices, the 23 MB of results and the table elements reached.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads)
+lane_gather_kernel(const float* __restrict__ table,   // [R, L]
+                   const int32_t* __restrict__ idx,   // [n_rows, L]
+                   float* __restrict__ out,           // [n_rows, L]
+                   int R, int L, long long n) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x
+                      + threadIdx.x;
+  if (i >= n) return;
+  const int j = static_cast<int>(i % L);
+  const int t = idx[i];
+  out[i] = (t >= 0 && t < R) ? __ldg(table + static_cast<size_t>(t) * L + j)
+                             : 0.f;
+}
+
+__global__ void __launch_bounds__(kThreads)
+flat_gather_kernel(const float* __restrict__ table,   // [n_table]
+                   const int32_t* __restrict__ idx,   // [n]
+                   float* __restrict__ out,           // [n]
+                   int n_table, long long n) {
+  const long long q = static_cast<long long>(blockIdx.x) * blockDim.x
+                      + threadIdx.x;
+  if (q >= n) return;
+  const int t = idx[q];
+  out[q] = (t >= 0 && t < n_table) ? __ldg(table + t) : 0.f;
+}
+
+unsigned blocks_for(long long n) {
+  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
+}
+
+}  // namespace
+
+extern "C" int cnrma_lane_gather(const void* table, const void* idx,
+                                 void* out, int R, int L, int n_rows,
+                                 void* stream) {
+  const long long n = static_cast<long long>(n_rows) * L;
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  lane_gather_kernel<<<blocks_for(n), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(table), static_cast<const int32_t*>(idx),
+      static_cast<float*>(out), R, L, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int cnrma_flat_gather(const void* table, const void* idx,
+                                 void* out, int n_table, int n_queries,
+                                 void* stream) {
+  const long long n = n_queries;
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  flat_gather_kernel<<<blocks_for(n), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(table), static_cast<const int32_t*>(idx),
+      static_cast<float*>(out), n_table, n);
+  return static_cast<int>(cudaGetLastError());
+}

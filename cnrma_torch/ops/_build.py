@@ -3,10 +3,11 @@ them with ``ctypes``.
 
 The sources are compiled with ``nvcc`` into one shared library with a plain
 C interface, at first use, into
-``build/cnrma_torch_kernels/<hash of sources and flags>/``.  The library is
-cached on disk by that hash, so an unchanged checkout builds once.  Nothing
-here runs at import time: the CPU tests import every module of the port on
-machines without ``nvcc``.
+``build/cnrma_torch_kernels/<hash of sources and flags>/``: one ``nvcc -c``
+per source, all started together, then one link.  The library is cached on
+disk by that hash, so an unchanged checkout builds once.  Nothing here runs
+at import time: the CPU tests import every module of the port on machines
+without ``nvcc``.
 
 There is no fallback: a missing ``nvcc``, a failed build or a kernel launch
 that reports an error raises.
@@ -21,17 +22,22 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Callable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = (Path(__file__).resolve().parents[2] / "build"
               / "cnrma_torch_kernels")
 LIB_NAME = "libcnrma_torch_kernels.so"
 
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # No --use_fast_math, and no FMA contraction: the kernels round pixel and
 # voxel ids with the same operation order as the plain torch versions, and a
 # contracted multiply-add flips ids that sit on a .5 boundary.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false",
+                 "-Xcompiler", "-fPIC")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,11 +48,23 @@ _SIGNATURES = {
                            _I, _F, _F, _F, _F, _I, _P],
     "cnrma_coarse_march": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _F, _F, _P],
+    "cnrma_rect_gather": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _P],
+    "cnrma_lane_gather": [_P, _P, _P, _I, _I, _I, _P],
+    "cnrma_flat_gather": [_P, _P, _P, _I, _I, _P],
+    "cnrma_probe_basic": [_P, _P, _I, _P],
+    "cnrma_probe_dot": [_P, _P, _P, _I, _I, _I, _P],
+    "cnrma_probe_dyn_slice": [_P, _P, _P, _I, _I, _I, _P],
+    "cnrma_probe_prefetch": [_P, _P, _P, _I, _I, _I, _P],
+    "cnrma_probe_alias": [_P, _P, _I, _P],
+    "cnrma_probe_onehot": [_P, _P, _P, _I, _I, _I, _P],
+    "cnrma_probe_dma": [_P, _P, _I, _I, _I, _I, _P],
     "cnrma_error_string": [_I],
 }
 
 _lock = threading.Lock()
 _lib = None
+_launchers = {}           # name -> the library's function, bound once
 
 
 def nvcc_path() -> str:
@@ -67,23 +85,39 @@ def _sources():
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> None:
+    """Run the commands in parallel; raise on the first that failed, after
+    all have ended."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    outputs = [(cmd, proc.communicate()[0], proc.returncode)
+               for cmd, proc in procs]
+    for cmd, text, rc in outputs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
+                               f"{text}")
+
+
 def _compile(out: Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources()]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    tag = os.getpid()
+    nvcc = nvcc_path()
+    objs = [out.with_name(f"{src.stem}.{tag}.o") for src in _sources()]
+    _run_all([[nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(_sources(), objs)])
+    tmp = out.with_name(f"{LIB_NAME}.{tag}.tmp")
+    _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]])
     os.replace(tmp, out)          # atomic: a concurrent build never half-reads
+    for obj in objs:
+        obj.unlink()
 
 
 def library() -> ctypes.CDLL:
@@ -100,6 +134,7 @@ def library() -> ctypes.CDLL:
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_char_p if name == "cnrma_error_string" \
                     else ctypes.c_int
+                _launchers[name] = fn
             _lib = lib
         return _lib
 
@@ -111,8 +146,26 @@ class LaunchCounter:
         self.launches = 0
 
 
-def check(err: int, what: str) -> None:
-    """Raise if a launcher returned a CUDA error code."""
+def launch(fn: str, counter: LaunchCounter, device: torch.device,
+           *args) -> None:
+    """Call launcher ``fn`` with ``args`` and the current stream of
+    ``device``, raise on the CUDA error it returns, and count the launch."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(device)
+                                 .cuda_stream)
+        err = _launchers[fn](*args, stream)
     if err != 0:
-        msg = library().cnrma_error_string(err).decode()
-        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+        msg = lib.cnrma_error_string(err).decode()
+        raise RuntimeError(f"{fn}: CUDA error {err} ({msg})")
+    counter.launches += 1
+
+
+def dispatch(t: torch.Tensor, cuda_fn: Callable, plain_fn: Callable, *args):
+    """``cuda_fn(*args)`` (the kernel) where ``t`` is a CUDA tensor,
+    ``plain_fn(*args)`` (its plain version) where it is a CPU tensor."""
+    if t.is_cuda:
+        return cuda_fn(*args)
+    if t.device.type == "cpu":
+        return plain_fn(*args)
+    raise ValueError(f"no kernel for device {t.device}")

@@ -15,7 +15,6 @@ volume [X, Y, Z, C].
 
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence, Tuple
 
 import torch
@@ -106,16 +105,11 @@ def volume_accum_cuda(projections: torch.Tensor, features: torch.Tensor,
     cnt = torch.empty(*voxel_dim, dtype=torch.float32, device=dev)
     valid = torch.empty(*voxel_dim, dtype=torch.bool, device=dev)
     org = [float(o) for o in origin]
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.cnrma_volume_accum(
-            features.data_ptr(), proj.data_ptr(), ok.data_ptr(),
-            out.data_ptr(), cnt.data_ptr(), valid.data_ptr(), V, H, W, C,
-            *voxel_dim, float(voxel_size), *org,
-            int(features.dtype == torch.bfloat16),
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _build.check(err, "volume_accum")
-    VOLUME_ACCUM.launches += 1
+    _build.launch("cnrma_volume_accum", VOLUME_ACCUM, dev,
+                  features.data_ptr(), proj.data_ptr(), ok.data_ptr(),
+                  out.data_ptr(), cnt.data_ptr(), valid.data_ptr(), V, H, W,
+                  C, *voxel_dim, float(voxel_size), *org,
+                  int(features.dtype == torch.bfloat16))
     return out, cnt, valid
 
 
@@ -125,13 +119,9 @@ def volume_accum(projections: torch.Tensor, features: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(mean volume, count, valid): the CUDA kernel for CUDA features, the
     plain version for CPU features."""
-    if features.is_cuda:
-        return volume_accum_cuda(projections, features, view_valid,
-                                 voxel_dim, voxel_size, origin)
-    if features.device.type == "cpu":
-        return volume_accum_plain(projections, features, view_valid,
-                                  voxel_dim, voxel_size, origin)
-    raise ValueError(f"no volume kernel for device {features.device}")
+    return _build.dispatch(features, volume_accum_cuda, volume_accum_plain,
+                           projections, features, view_valid, voxel_dim,
+                           voxel_size, origin)
 
 
 def accumulate_views(projections: torch.Tensor, features: torch.Tensor,

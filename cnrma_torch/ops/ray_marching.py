@@ -25,7 +25,6 @@ which is not the IEEE division the kernels and the reference use.
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import NamedTuple, Sequence, Tuple
 
@@ -194,15 +193,10 @@ def coarse_march_cuda(o: torch.Tensor, d: torch.Tensor,
     occ = occupancy.to(**f32).contiguous()
     j0 = torch.empty(n, dtype=torch.int32, device=dev)
     has_hit = torch.empty(n, dtype=torch.bool, device=dev)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.cnrma_coarse_march(
-            o.data_ptr(), d.data_ptr(), origin.data_ptr(), occ.data_ptr(),
-            j0.data_ptr(), has_hit.data_ptr(), n, n_coarse, coarse_step,
-            *occ.shape, float(t_one), float(cell_size),
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _build.check(err, "coarse_march")
-    COARSE_MARCH.launches += 1
+    _build.launch("cnrma_coarse_march", COARSE_MARCH, dev, o.data_ptr(),
+                  d.data_ptr(), origin.data_ptr(), occ.data_ptr(),
+                  j0.data_ptr(), has_hit.data_ptr(), n, n_coarse, coarse_step,
+                  *occ.shape, float(t_one), float(cell_size))
     return j0, has_hit
 
 
@@ -210,13 +204,9 @@ def coarse_march(o, d, occupancy, origin, t_one, coarse_step, n_coarse,
                  cell_size) -> Tuple[torch.Tensor, torch.Tensor]:
     """(j0, has_hit): the CUDA kernel for CUDA rays, the plain version for
     CPU rays."""
-    if d.is_cuda:
-        return coarse_march_cuda(o, d, occupancy, origin, t_one, coarse_step,
-                                 n_coarse, cell_size)
-    if d.device.type == "cpu":
-        return coarse_march_plain(o, d, occupancy, origin, t_one,
-                                  coarse_step, n_coarse, cell_size)
-    raise ValueError(f"no coarse-march kernel for device {d.device}")
+    return _build.dispatch(d, coarse_march_cuda, coarse_march_plain, o, d,
+                           occupancy, origin, t_one, coarse_step, n_coarse,
+                           cell_size)
 
 
 def ray_march_neus(projection: torch.Tensor, tsdf: torch.Tensor,

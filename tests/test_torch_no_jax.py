@@ -16,6 +16,9 @@ import numpy as np, torch
 import cnrma_torch.bridge, cnrma_torch.synthetic
 import cnrma_torch.ops._build, cnrma_torch.ops.backproject
 import cnrma_torch.ops.ray_marching, cnrma_torch.ops.sparse
+import cnrma_torch.timing
+import cnrma_torch.tools.bp_probe, cnrma_torch.tools.feature_probe
+import cnrma_torch.tools.gather_probe, cnrma_torch.tools.trace_check
 from cnrma_torch.models.cn_rma import CNRMA
 from cnrma_torch.models.fcaf3d import DetectionCapacities
 torch.manual_seed(0)
