@@ -10,14 +10,20 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
   1. device: CUDA required; card name and power limit from nvidia-smi.
   2. build: every kernel source in cnrma_torch/csrc through nvcc.
   3. volume kernel vs plain at the full_ship shape (50 views of
-     [120, 160, 32], 256x256x96 voxels at 4 cm), fp32 and bf16.
-  4. coarse-march kernel vs plain at the full_ship shape (19,200 rays per
-     view, 38 coarse steps) on the occupancy grid of a sphere TSDF.
+     [120, 160, 32], 256x256x96 voxels at 4 cm), fp32 and bf16; the
+     pixel-row reads (hits) against the distinct rows.
+  4. ray-march kernel vs plain at the full_ship shape (50 views x 19,200
+     rays, 38 coarse steps, a 48-sample window) on a planted ball TSDF
+     and its occupancy grid: j0/has_hit equal, kept sets equal outside
+     the threshold band, weights within 1e-5.
   5. end to end: one full_ship scene through ``CNRMA`` in bf16 with
-     bench.py's synthesized parameters; kernel launch counts, output
-     shapes and finiteness, warm forward time, peak memory.
+     bench.py's synthesized parameters; each kernel launched once, output
+     shapes and finiteness, warm forward time, the ray-march stage alone
+     (CUDA events), peak memory; the ray-march stage once more with CUDA
+     sync debugging set to "error", so a host sync inside it fails.
   5b. surface: the same model's ray march and detector on a planted ball
-     TSDF, so that points and boxes come out at full size.
+     TSDF, so that points and boxes come out at full size; the ray-march
+     stage alone beside them.
   6. reference: a tiny scene in fp32 on the GPU (kernels) and on the CPU
      (plain versions), same parameters and draw; TSDFs, points and boxes
      must agree.
@@ -187,18 +193,22 @@ def phase_volume(dev) -> dict:
         log(f"[volume] {str(dtype)[6:]}: mask+counts equal, max|err| "
             f"{err.max().item():.3g} (tol {tol_name}); observed voxels "
             f"{ok.float().mean().item():.4f}, max views "
-            f"{cnt.max().item():.0f}; kernel {ms:.3f} ms, plain "
+            f"{cnt.max().item():.0f}; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.3f} ms")
+        nbytes, ops, reached = volume_work(*args, cnt)
+        hits = int(cnt.sum())
         row = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
-                   **bound(*volume_work(*args, cnt)))
+                   **bound(nbytes, ops))
         log(f"[volume] {str(dtype)[6:]}: bound {row['bound_ms']:.4f} ms "
-            f"by {row['bound_by']}")
+            f"by {row['bound_by']}; pixel-row reads (hits) {hits}, distinct "
+            f"rows reached {reached}, ratio {hits / reached:.1f}")
     return row            # the main path's dtype (bf16) is measured last
 
 
 def volume_work(proj, feats, view_valid, voxel_dim, voxel_size, origin,
                 cnt):
-    """(bytes, fp32 operations) of the volume function on these inputs.
+    """(bytes, fp32 operations, distinct pixel rows reached) of the volume
+    function on these inputs.
     Bytes: the feature rows some voxel reaches, the projections and view
     flags, the volume, count and mask written.  Operations: 6 per voxel
     (its centre), 21 per voxel and valid view (projection: 18, one
@@ -222,71 +232,98 @@ def volume_work(proj, feats, view_valid, voxel_dim, voxel_size, origin,
               + n * C * esize + n * 4 + n)
     ops = (6.0 * n + 21.0 * n * n_views + 33.0 * float(cnt.sum())
            + 32.0 * int((cnt > 0).sum()))
+    return nbytes, ops, reached
+
+
+RAY_TOL = 1e-5          # NeuS weights: kernel against plain version
+
+
+def planted_ball(dev) -> torch.Tensor:
+    """A 0.5 m ball TSDF at the centre of the full_ship grid, positive
+    inside (the sign the NeuS weights respond to): [X, Y, Z] fp32."""
+    from cnrma_torch.synthetic import sphere_tsdf
+    c = FULL_SHIP
+    return -sphere_tsdf(c["voxel_dim"], c["voxel_size"], radius=0.5,
+                        trunc=3 * c["voxel_size"]).to(dev)
+
+
+def ray_args(dev) -> tuple:
+    """The ray-march kernel's arguments at the full_ship shape: the rays of
+    the 50 views, a planted 0.5 m ball TSDF (positive inside, the sign the
+    NeuS weights respond to) and its occupancy grid, the march's
+    constants."""
+    from cnrma_torch.ops import ray_marching as rm
+    c = FULL_SHIP
+    vs = c["voxel_size"]
+    tsdf = planted_ball(dev)
+    proj = full_ship_projections(dev)
+    proj[:, :2, :] /= 4
+    o, d = rm.get_ray_parameters(proj, c["h"] // 4, c["w"] // 4)
+    valid = torch.ones(c["views"], dtype=torch.bool, device=dev)
+    return (o, d, valid, tsdf, rm.build_occupancy(tsdf, c["skip_factor"]),
+            (0.0, 0.0, 0.0), vs, c["ray_samples"], 0.05, c["skip_factor"],
+            48, c["coarse_step"])
+
+
+def ray_work(args, j0, has_hit) -> tuple:
+    """(bytes, fp32 operations) of the ray-march function on these inputs.
+    Bytes: origins, directions, view flags, the packed occupancy grid, the
+    distinct TSDF voxels the fine windows read, and the weights, sample
+    ids, j0 and has_hit written.  Operations: 15 per coarse step taken
+    (sample distance 3; per axis a product, two sums and a division), j0 + 1
+    steps on a ray that hits and all of them on one that misses; 28 per
+    fine sample of a ray that hits (position 7, voxel id 6, sigmoid 3,
+    alpha 4, log1p 3, running sum and weight 4, threshold 1)."""
+    from cnrma_torch.ops import ray_marching as rm
+    o, d, valid, tsdf, occ, origin, vs, n_samples, thr, factor, window, \
+        step = args
+    V, HW = d.shape[:2]
+    k_max = min(window, math.ceil(1.0 / thr))
+    n_coarse = (n_samples + step - 1) // step
+    X, Y, Z = tsdf.shape
+    t_one = math.sqrt(X * X + Y * Y + Z * Z) * vs / n_samples
+    start = torch.clamp(j0 * step - step, 0, n_samples - window)[has_hit]
+    ts = (start[:, None] + torch.arange(window, device=d.device)).float() \
+        * t_one
+    places = o[:, None, :].expand(V, HW, 3)[has_hit][:, None, :] \
+        + d[has_hit][:, None, :] * ts[..., None]
+    flat, inside = rm._voxel_ids(places, origin, vs, tsdf.shape)
+    n_tsdf = int(torch.unique(flat[inside]).numel())
+    nbytes = (V * 12 + V * HW * 12 + V + rm.pack_occupancy(occ).numel()
+              + 4 * n_tsdf + V * HW * (8 * k_max + 5))
+    steps = float(torch.where(has_hit, j0 + 1,
+                              torch.where(valid[:, None], n_coarse, 0)).sum())
+    ops = 15.0 * steps + 28.0 * window * int(has_hit.sum())
     return nbytes, ops
 
 
-def coarse_args(dev) -> tuple:
-    """The coarse-march kernel's arguments at the full_ship shape: the
-    rays (origin, directions) of each of the 50 views, then the occupancy
-    grid of a 0.5 m sphere TSDF and the march's constants."""
+def phase_ray_march(dev) -> dict:
     from cnrma_torch.ops import ray_marching as rm
-    from cnrma_torch.synthetic import sphere_tsdf
-    c = FULL_SHIP
-    dim, vs = c["voxel_dim"], c["voxel_size"]
-    tsdf = sphere_tsdf(dim, vs, radius=0.5, trunc=3 * vs).to(dev)
-    occ = rm.build_occupancy(tsdf, c["skip_factor"])
-    proj = full_ship_projections(dev)
-    proj[:, :2, :] /= 4
-    h, w = c["h"] // 4, c["w"] // 4
-    t_one = math.sqrt(sum(n * n for n in dim)) * vs / c["ray_samples"]
-    step = c["coarse_step"]
-    n_coarse = (c["ray_samples"] + step - 1) // step
-    cell = vs * c["skip_factor"]
-    origin = torch.zeros(3, device=dev)
-    rays = [rm.get_ray_parameters(p, h, w) for p in proj]
-    return rays, occ, origin, t_one, step, n_coarse, cell
-
-
-def phase_coarse(dev) -> dict:
-    from cnrma_torch.ops import ray_marching as rm
-    c = FULL_SHIP
-    h, w = c["h"] // 4, c["w"] // 4
-    rays, occ, origin, t_one, step, n_coarse, cell = coarse_args(dev)
-    hits, err = 0, 0.0
-    for o, d in rays:
-        got = rm.coarse_march_cuda(o, d, occ, origin, t_one, step, n_coarse,
-                                   cell)
-        want = rm.coarse_march_plain(o, d, occ, origin, t_one, step,
-                                     n_coarse, cell)
-        torch.cuda.synchronize()
-        err = max(err, float((got[0] - want[0]).abs().max()),
-                  float((got[1] != want[1]).sum()))
-        hits += int(got[1].sum())
-    if err != 0.0:
-        raise AssertionError(f"coarse-march kernel: j0/has_hit differ from "
-                             f"the plain version (max|err| {err})")
-    share = hits / (len(rays) * h * w)
-    if not 0.0 < share < 1.0:
-        raise AssertionError(f"coarse march: degenerate hit share {share}")
-    o, d = rays[0]
-    ms = time_ms(lambda: rm.coarse_march_cuda(
-        o, d, occ, origin, t_one, step, n_coarse, cell), dev)
-    plain_ms = time_ms(lambda: rm.coarse_march_plain(
-        o, d, occ, origin, t_one, step, n_coarse, cell), dev)
-    # work of the timed view: 15 fp32 operations per step taken (sample
-    # distance 3, and per axis a product, two sums and a division), j0 + 1
-    # steps on a ray that hits and n_coarse on one that misses; bytes: the
-    # directions, the grid, j0 and has_hit
-    j0, has_hit = rm.coarse_march_plain(o, d, occ, origin, t_one, step,
-                                        n_coarse, cell)
-    steps = float(torch.where(has_hit, j0 + 1, n_coarse).sum())
-    n = d.shape[0]
-    work = bound(12 + 12 * n + 12 + 4 * occ.numel() + 5 * n, 15.0 * steps)
-    log(f"[coarse] {len(rays)} views x {h * w} rays, {n_coarse} steps, grid "
-        f"{tuple(occ.shape)} ({occ.mean().item():.3f} occupied): j0/has_hit "
-        f"equal; hit share {share:.4f}; kernel {ms:.4f} ms/view, plain "
-        f"{plain_ms:.4f} ms/view, bound {work['bound_ms']:.6f} ms/view by "
-        f"{work['bound_by']}")
+    args = ray_args(dev)
+    got = rm.march_rays_cuda(*args)
+    want = rm.march_rays_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])):
+        raise AssertionError("ray-march kernel: j0/has_hit differ from the "
+                             "plain version")
+    n_samples, thr = args[7], args[8]
+    differ, err = rm.kept_mismatch(got[:2], want[:2], n_samples, thr)
+    kept = int((got[0] > 0).sum())
+    band = int(((got[0] - thr).abs() < 1e-5).sum())
+    if differ or err > RAY_TOL or kept == 0:
+        raise AssertionError(f"ray-march kernel: {differ} kept samples "
+                             f"differ outside the threshold band, weight "
+                             f"max|err| {err} (tol {RAY_TOL}), {kept} kept")
+    V, HW = args[1].shape[:2]
+    share = int(got[3].sum()) / (V * HW)
+    ms = time_ms(lambda: rm.march_rays_cuda(*args), dev)
+    plain_ms = time_ms(lambda: rm.march_rays_plain(*args), dev, reps=3)
+    work = bound(*ray_work(args, got[2], got[3]))
+    log(f"[ray march] {V} views x {HW} rays, one launch: j0/has_hit equal; "
+        f"hit share {share:.4f}; kept samples {kept} ({band} within 1e-5 of "
+        f"the threshold, masked), sets equal, weight max|err| {err:.3g} "
+        f"(tol {RAY_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {work['bound_ms']:.6f} ms by {work['bound_by']}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **work)
 
 
@@ -309,20 +346,67 @@ def full_ship_model(dev):
     return model.to(dev).eval()
 
 
-def phase_end_to_end(dev):
-    from cnrma_torch.ops.backproject import VOLUME_ACCUM
-    from cnrma_torch.ops.ray_marching import COARSE_MARCH
+def full_ship_batch(dev) -> dict:
+    """One full_ship scene: 50 views of 480x640 random pixels (seed 0),
+    the ring projections, every view valid."""
     c = FULL_SHIP
     v, h, w = c["views"], c["h"], c["w"]
-    model = full_ship_model(dev)
     rng = np.random.RandomState(0)
-    batch = {
+    return {
         "imgs": torch.from_numpy(
             rng.rand(1, v, h, w, 3).astype(np.float32) * 255).to(dev),
         "projection": full_ship_projections(dev)[None],
         "view_valid": torch.ones(1, v, dtype=torch.bool, device=dev),
         "offset": torch.zeros(1, 3, device=dev),
     }
+
+
+def features_and_fine_tsdf(model, batch) -> tuple:
+    """The forward's 2D features and its fine TSDF, the ray-march stage's
+    inputs."""
+    with torch.no_grad():
+        feats = model.extract_2d(batch["imgs"])
+        volume, _ = model.build_volume(feats, batch["projection"],
+                                       batch["view_valid"])
+        return feats, model.reconstruct(volume)["scene_tsdf_004"]
+
+
+def time_ray_stage(dev, model, batch, feats, tsdf, reps: int = 5) -> float:
+    """Median time by CUDA events of the ray-march stage alone
+    (``CNRMA.ray_march``: scene march, point normalisation and subsample,
+    feature gather) on these features and [1, X, Y, Z] TSDF."""
+    args = (feats, batch["projection"], batch["view_valid"], tsdf)
+    with torch.no_grad():
+        return time_ms(lambda: model.ray_march(
+            *args, torch.Generator(device=dev).manual_seed(0)), dev,
+            reps=reps)
+
+
+def ray_stage(dev, model, batch, feats, tsdf, tag: str) -> float:
+    """``time_ray_stage``, after one run under CUDA sync debugging set to
+    "error", where a host sync inside the stage raises."""
+    args = (feats, batch["projection"], batch["view_valid"], tsdf)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model.ray_march(*args, gen)              # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.ray_march(*args, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ms = time_ray_stage(dev, model, batch, feats, tsdf)
+    log(f"[{tag}] ray-march stage alone: {ms:.3f} ms (CUDA events, median "
+        f"of 5); no host sync inside it")
+    return ms
+
+
+def phase_end_to_end(dev):
+    from cnrma_torch.ops.backproject import VOLUME_ACCUM
+    from cnrma_torch.ops.ray_marching import RAY_MARCH
+    c = FULL_SHIP
+    model = full_ship_model(dev)
+    batch = full_ship_batch(dev)
 
     def forward():
         return model(batch, generator=torch.Generator(device=dev)
@@ -331,18 +415,18 @@ def phase_end_to_end(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     VOLUME_ACCUM.launches = 0
-    COARSE_MARCH.launches = 0
+    RAY_MARCH.launches = 0
     t0 = time.perf_counter()
     out = forward()
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     launches = {"volume_accum": VOLUME_ACCUM.launches,
-                "coarse_march": COARSE_MARCH.launches}
+                "ray_march": RAY_MARCH.launches}
     peak = torch.cuda.max_memory_allocated()
     log(f"[e2e] launches in one forward: {launches}")
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel of the main path never launched: "
-                             f"{launches}")
+    if launches != {"volume_accum": 1, "ray_march": 1}:
+        raise AssertionError(f"one scene must launch each main-path kernel "
+                             f"once: {launches}")
     X, Y, Z = c["voxel_dim"]
     k = 4 * model.detector.nms_pre      # the top rows of each of 4 levels
     checks = {"bboxes": (out["bboxes"], (1, k, 6)),
@@ -368,6 +452,9 @@ def phase_end_to_end(dev):
         f"{statistics.median(times[1:]) * 1e3:.1f} ms "
         f"({', '.join(f'{t * 1e3:.1f}' for t in times[1:])}); peak memory "
         f"{peak / 2 ** 30:.2f} GiB")
+    feats, fine = features_and_fine_tsdf(model, batch)
+    with torch.no_grad():
+        ray_stage(dev, model, batch, feats, fine, "e2e")
     return launches, model, batch
 
 
@@ -378,10 +465,8 @@ def phase_surface(dev, model, batch) -> None:
     the fine TSDF is a planted ball (0.5 m radius at the volume centre,
     positive inside, which is the sign the NeuS weights respond to) and the
     ray march and the detector run on it."""
-    from cnrma_torch.synthetic import sphere_tsdf
     c = FULL_SHIP
-    tsdf = -sphere_tsdf(c["voxel_dim"], c["voxel_size"], radius=0.5,
-                        trunc=3 * c["voxel_size"])[None].to(dev)
+    tsdf = planted_ball(dev)[None]
     with torch.no_grad():
         feats = model.extract_2d(batch["imgs"])
 
@@ -400,6 +485,7 @@ def phase_surface(dev, model, batch) -> None:
             march_and_detect()
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
+        ray_stage(dev, model, batch, feats, tsdf, "surface")
     n_points, n_boxes = int(pts.valid.sum()), int(bvalid.sum())
     finite = all(bool(torch.isfinite(t).all())
                  for t in (pts.xyz, pts.feats, bboxes, scores))
@@ -515,19 +601,17 @@ def phase_probes(dev):
 def phase_device_time(dev, rows, probe_calls) -> None:
     """Each kernel's device time per call (``device_ms``), and its library
     call's where there is one, from profiler traces; K1 and K2 on the bf16
-    volume and first view of their phases, inputs made again here so that
-    no phase before holds them.  Last of all: once a profiler session has
-    run, CUPTI's launch callbacks stay on and slow every later launch on
-    the host, so host-timed phases come first."""
+    volume and the ray-march scene of their phases, inputs made again here
+    so that no phase before holds them.  Last of all: once a profiler
+    session has run, CUPTI's launch callbacks stay on and slow every later
+    launch on the host, so host-timed phases come first."""
     from cnrma_torch.ops import backproject as bp
     from cnrma_torch.ops import ray_marching as rm
     vol = volume_args(dev, torch.bfloat16)
-    rays, *grid = coarse_args(dev)
-    o, d = rays[0]
+    rays = ray_args(dev)
     calls = [("volume_accum_kernel", lambda: bp.volume_accum_cuda(*vol),
               None),
-             ("coarse_march_kernel", lambda: rm.coarse_march_cuda(o, d, *grid),
-              None),
+             ("ray_march_kernel", lambda: rm.march_rays_cuda(*rays), None),
              *probe_calls]
     for row, (symbol, kernel, library) in zip(rows, calls):
         row["device_ms"] = device_ms(kernel, symbol)
@@ -544,7 +628,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     phase_build()
     vol = phase_volume(dev)
-    coarse = phase_coarse(dev)
+    ray = phase_ray_march(dev)
     launches, model, batch = phase_end_to_end(dev)
     phase_surface(dev, model, batch)
     del model, batch
@@ -555,10 +639,10 @@ def main() -> None:
              source="cnrma_torch/csrc/volume_accum.cu",
              replaces="cnrma_tpu/ops/pallas_bp.py:140",
              launches=launches["volume_accum"], **vol, library_ms=None),
-        dict(name="coarse_march", route="cuda",
-             source="cnrma_torch/csrc/coarse_march.cu",
+        dict(name="ray_march", route="cuda",
+             source="cnrma_torch/csrc/ray_march.cu",
              replaces="cnrma_tpu/ops/pallas_ray.py:108",
-             launches=launches["coarse_march"], **coarse, library_ms=None),
+             launches=launches["ray_march"], **ray, library_ms=None),
         *probes,
     ]
     phase_device_time(dev, kernels, probe_calls)

@@ -26,7 +26,7 @@ from cnrma_torch.models.tsdf_head import TSDFHead
 from cnrma_torch.models.unet3d import UNet3D
 from cnrma_torch.ops.backproject import accumulate_views
 from cnrma_torch.ops.ray_marching import (
-    RayMarchPoints, build_occupancy, ray_march_neus)
+    RayMarchPoints, build_occupancy, ray_march_scene)
 
 
 class RayPoints(NamedTuple):
@@ -155,10 +155,12 @@ class CNRMA(nn.Module):
                   view_valid: torch.Tensor, tsdf: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
                   uniform: Optional[torch.Tensor] = None) -> RayPoints:
-        """All-view NeuS marching -> weighted feature point cloud:
-        per-view marching, global mean weight normalization, subsample to
-        ``max_points``, pixel-feature gather, weight multiply.  ``uniform``
-        ([B, V * rays_per_view_cap]) replaces the generator's draw."""
+        """All-view NeuS marching -> weighted feature point cloud: one
+        scene-level march per scene (all views at once), global mean weight
+        normalization, subsample to ``max_points``, pixel-feature gather,
+        weight multiply.  ``uniform`` ([B, V * rays_per_view_cap]) replaces
+        the generator's draw.  An invalid view emits no point (the JAX
+        package zeroes its weights: the same kept set)."""
         b, v, h, w, _ = feats.shape
         proj = self._scaled_projections(projections)
         use_skip = (self.ray_skip_factor > 0
@@ -169,20 +171,16 @@ class CNRMA(nn.Module):
         for i in range(b):
             occ = (build_occupancy(tsdf[i], self.ray_skip_factor)
                    if use_skip else None)
-            per = []
-            for j in range(v):
-                pts = ray_march_neus(
-                    proj[i, j], tsdf[i], self.voxel_dim, self.voxel_size,
-                    self.origin, h, w, view_index=j,
-                    n_samples=self.ray_samples,
-                    weight_threshold=self.neus_threshold,
-                    capacity=self.rays_per_view_cap, occupancy=occ,
-                    skip_factor=self.ray_skip_factor,
-                    skip_window=self.ray_skip_window,
-                    coarse_step=self.ray_skip_coarse_step)
-                per.append(pts._replace(weight=torch.where(
-                    view_valid[i, j], pts.weight, 0.0)))
-            flat = RayMarchPoints(*(torch.cat(f) for f in zip(*per)))
+            pts = ray_march_scene(
+                proj[i], tsdf[i], view_valid[i], self.voxel_dim,
+                self.voxel_size, self.origin, h, w,
+                n_samples=self.ray_samples,
+                weight_threshold=self.neus_threshold,
+                capacity=self.rays_per_view_cap, occupancy=occ,
+                skip_factor=self.ray_skip_factor,
+                skip_window=self.ray_skip_window,
+                coarse_step=self.ray_skip_coarse_step)
+            flat = RayMarchPoints(*(f.flatten(0, 1) for f in pts))
             scenes.append(_normalize_subsample(
                 flat, self.max_points, generator,
                 None if uniform is None else uniform[i]))

@@ -15,6 +15,7 @@ that reports an error raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -44,10 +45,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of every exported launcher; each returns cudaGetLastError().
 _SIGNATURES = {
-    "cnrma_volume_accum": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _I, _F, _F, _F, _F, _I, _P],
-    "cnrma_coarse_march": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _F, _F, _P],
+    "cnrma_volume_accum": [_P] * 6 + [_I] * 7 + [_F] * 4 + [_I, _P],
+    "cnrma_ray_march": [_P] * 9 + [_I] * 13 + [_F] * 7 + [_P],
     "cnrma_rect_gather": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _P],
     "cnrma_lane_gather": [_P, _P, _P, _I, _I, _I, _P],
@@ -149,9 +148,13 @@ class LaunchCounter:
 def launch(fn: str, counter: LaunchCounter, device: torch.device,
            *args) -> None:
     """Call launcher ``fn`` with ``args`` and the current stream of
-    ``device``, raise on the CUDA error it returns, and count the launch."""
+    ``device``, raise on the CUDA error it returns, and count the launch.
+    The device guard is entered only when ``device`` is not the current
+    device already."""
     lib = library()
-    with torch.cuda.device(device):
+    current = device.index is None \
+        or device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if current else torch.cuda.device(device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(device)
                                  .cuda_stream)
         err = _launchers[fn](*args, stream)

@@ -8,9 +8,10 @@ capacities are not ported: they exist to work around the TPU's gather rate
 and drop tiles when a capacity saturates.
 
 On a CUDA tensor the accumulation is the hand-written kernel
-``csrc/volume_accum.cu``; on a CPU tensor it is ``volume_accum_plain``, the
-same function in torch.  Layout is channels-last: features [V, H, W, C],
-volume [X, Y, Z, C].
+``csrc/volume_accum.cu`` (8x8x4 voxel tiles, views culled per tile, pixel
+rows read through L1/L2); on a CPU tensor it is
+``volume_accum_plain``, the same function in torch.  Layout is
+channels-last: features [V, H, W, C], volume [X, Y, Z, C].
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 from cnrma_torch.ops import _build
 
 VOLUME_ACCUM = _build.LaunchCounter()
-MAX_VIEWS = 1000          # the kernel keeps 49 B per view in shared memory
+MAX_VIEWS = 1024          # the kernel keeps 53 B per view in shared memory
 
 
 def _grid_axes(voxel_dim: Sequence[int], voxel_size: float,
@@ -95,6 +96,9 @@ def volume_accum_cuda(projections: torch.Tensor, features: torch.Tensor,
         raise ValueError(f"volume kernel is built for 32 channels, got {C}")
     if V > MAX_VIEWS:
         raise ValueError(f"volume kernel takes at most {MAX_VIEWS} views")
+    if H * W >= 2 ** 30:
+        raise ValueError(f"volume kernel takes under 2**30 pixels a view, "
+                         f"got {H} x {W}")
     if projections.shape != (V, 3, 4) or view_valid.shape != (V,):
         raise ValueError("projections must be [V, 3, 4] and view_valid [V]")
     if not features.is_contiguous() or features.data_ptr() % 16:

@@ -6,8 +6,12 @@ nvcc).  Skipped where there is no CUDA device.
 The two main-path kernels are built with ``--fmad=false`` and sum in the
 same order as their plain versions, so ids, masks and counts must be equal;
 volumes agree to fp32 rounding (1e-6 absolute on features in [0, 1]) and,
-in bf16, to one bf16 ulp of the mean.  The probe kernels copy, gather or
-multiply small integers, so they must equal their plain versions exactly.
+in bf16, to one bf16 ulp of the mean.  The ray-march kernel's NeuS weights
+take their cumulative sum in another order than torch's CUDA ``cumsum``:
+its j0/has_hit are equal, its kept sets equal outside samples within 1e-5
+of the weight threshold, and its weights agree to 1e-5.  The probe kernels
+copy, gather or multiply small integers, so they must equal their plain
+versions exactly.
 """
 
 import math
@@ -31,56 +35,141 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("views,h,w,dim", [(3, 24, 32, (16, 16, 8)),
-                                           (7, 60, 80, (48, 40, 24))])
-def test_volume_kernel_matches_plain(cuda, dtype, views, h, w, dim):
-    rng = np.random.RandomState(0)
-    vs = 0.3          # the volume reaches past the frustums
-    proj = ring_projections(views, 4 * h, 4 * w, dim, vs)
-    proj[:, :2, :] /= 4
-    feats = torch.from_numpy(rng.rand(views, h, w, 32).astype(np.float32))
-    valid = torch.ones(views, dtype=torch.bool)
-    valid[1] = False
+def _volume_check(cuda, dtype, proj, feats, valid, dim, vs, origin):
+    """The volume kernel against its plain version; returns the valid
+    mask."""
     args = (torch.from_numpy(proj).to(cuda), feats.to(cuda, dtype),
-            valid.to(cuda), dim, vs, (0.0, 0.0, 0.0))
+            valid.to(cuda), dim, vs, origin)
     vol, cnt, ok = bp.volume_accum_cuda(*args)
     pvol, pcnt, pok = bp.volume_accum_plain(*args)
     torch.cuda.synchronize()
-    assert ok.any() and not ok.all()
-    assert torch.equal(ok, pok)
-    assert torch.equal(cnt, pcnt)
+    assert torch.equal(ok, pok) and torch.equal(cnt, pcnt)
     # fp32: rounding of the mean; bf16: one bf16 ulp of the mean
     tol = (1e-6 if dtype == torch.float32
            else 2.0 ** -7 * pvol.float().abs() + 1e-30)
     assert bool(((vol.float() - pvol.float()).abs() <= tol).all())
+    return ok
 
 
-@pytest.mark.parametrize("views,h,w,dim,step", [(2, 24, 32, (64, 64, 32), 4),
-                                                (3, 60, 80, (128, 96, 48), 8)])
-def test_coarse_march_kernel_matches_plain(cuda, views, h, w, dim, step):
-    vs = 0.04
-    tsdf = sphere_tsdf(dim, vs, radius=0.3 * min(dim) * vs,
-                       trunc=3 * vs).to(cuda)
-    occ = rm.build_occupancy(tsdf, 8)
+def _ring_scene(views, h, w, dim, vs, seed=0):
+    rng = np.random.RandomState(seed)
     proj = ring_projections(views, 4 * h, 4 * w, dim, vs)
     proj[:, :2, :] /= 4
-    n_samples = 300
-    t_one = math.sqrt(sum(n * n for n in dim)) * vs / n_samples
-    n_coarse = (n_samples + step - 1) // step
-    origin = torch.zeros(3, device=cuda)
-    hits = 0
-    for p in torch.from_numpy(proj).to(cuda):
-        o, d = rm.get_ray_parameters(p, h, w)
-        got = rm.coarse_march_cuda(o, d, occ, origin, t_one, step, n_coarse,
-                                   8 * vs)
-        want = rm.coarse_march_plain(o, d, occ, origin, t_one, step,
-                                     n_coarse, 8 * vs)
-        torch.cuda.synchronize()
-        assert torch.equal(got[0], want[0])
-        assert torch.equal(got[1], want[1])
-        hits += int(got[1].sum())
-    assert 0 < hits < views * h * w
+    feats = torch.from_numpy(rng.rand(views, h, w, 32).astype(np.float32))
+    return proj, feats
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("views,h,w,dim", [(3, 24, 32, (16, 16, 8)),
+                                           (7, 60, 80, (48, 40, 24))])
+def test_volume_kernel_matches_plain(cuda, dtype, views, h, w, dim):
+    vs = 0.3          # the volume reaches past the frustums
+    proj, feats = _ring_scene(views, h, w, dim, vs)
+    valid = torch.ones(views, dtype=torch.bool)
+    valid[1] = False
+    ok = _volume_check(cuda, dtype, proj, feats, valid, dim, vs,
+                       (0.0, 0.0, 0.0))
+    assert ok.any() and not ok.all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["ragged", "one_view", "blind", "inside"])
+def test_volume_kernel_tiles(cuda, dtype, case):
+    """The tiled kernel's edges: a grid that is not a multiple of the 8x8x4
+    tile; one view; invalid views and views that see nothing (all voxels
+    behind the camera, or all projected 10,000 pixels off the image), which
+    every tile culls; cameras inside the volume, so tiles cross their
+    camera planes."""
+    vs, origin = 0.3, (0.0, 0.0, 0.0)
+    views, h, w, dim = {"ragged": (5, 24, 32, (20, 12, 10)),
+                        "one_view": (1, 30, 40, (17, 9, 23)),
+                        "blind": (6, 24, 32, (16, 16, 16)),
+                        "inside": (4, 60, 80, (40, 40, 20))}[case]
+    if case == "inside":
+        vs = 0.4          # 16 x 16 x 8 m around a ring of radius 3 m
+    proj, feats = _ring_scene(views, h, w, dim, vs, seed=1)
+    valid = torch.ones(views, dtype=torch.bool)
+    if case == "blind":
+        valid[0] = False
+        proj[2, 2, 3] = -1e3                                # all behind
+        proj[4, 0, :] += 1e4 * proj[4, 2, :]                # off the image
+    if case == "inside":
+        eye = [np.linalg.solve(p[:, :3], -p[:, 3]) for p in proj]
+        assert all((0 < e).all() and (e < np.array(dim) * vs).all()
+                   for e in eye)
+    ok = _volume_check(cuda, dtype, proj, feats, valid, dim, vs, origin)
+    assert ok.any()
+    if case == "blind":                   # views 0, 2 and 4 add nothing
+        seen = torch.tensor([False, True, False, True, False, True])
+        want = bp.volume_accum_plain(
+            torch.from_numpy(proj).to(cuda), feats.to(cuda, dtype),
+            seen.to(cuda), dim, vs, origin)
+        got = bp.volume_accum_cuda(
+            torch.from_numpy(proj).to(cuda), feats.to(cuda, dtype),
+            valid.to(cuda), dim, vs, origin)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+def _rm_scene(cuda, views, h, w, dim, vs):
+    tsdf = -sphere_tsdf(dim, vs, radius=0.3 * min(dim) * vs,
+                        trunc=3 * vs).to(cuda)
+    proj = torch.from_numpy(ring_projections(views, 4 * h, 4 * w, dim, vs))
+    proj[:, :2, :] /= 4
+    valid = torch.ones(views, dtype=torch.bool, device=cuda)
+    valid[1] = False
+    return tsdf, proj.to(cuda), valid
+
+
+@pytest.mark.parametrize("views,h,w,dim,step,skip", [
+    (3, 24, 32, (64, 64, 32), 4, True),
+    (4, 60, 80, (128, 96, 48), 8, True),
+    (3, 24, 32, (64, 64, 32), 8, False)])
+def test_ray_march_kernel_matches_plain(cuda, views, h, w, dim, step, skip):
+    """The scene kernel against ``march_rays_plain``: j0/has_hit equal,
+    kept sets equal outside the threshold band, weights within 1e-5; the
+    invalid view emits nothing."""
+    vs, n_samples = 0.04, 300
+    tsdf, proj, valid = _rm_scene(cuda, views, h, w, dim, vs)
+    occ = rm.build_occupancy(tsdf, 8) if skip else None
+    o, d = rm.get_ray_parameters(proj, h, w)
+    args = (o, d, valid, tsdf, occ, (0.0, 0.0, 0.0), vs, n_samples, 0.05,
+            8, 48, step)
+    before = rm.RAY_MARCH.launches
+    got = rm.march_rays_cuda(*args)
+    want = rm.march_rays_plain(*args)
+    torch.cuda.synchronize()
+    assert rm.RAY_MARCH.launches == before + 1
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    assert 0 < int(got[3].sum()) < (views - 1) * h * w or not skip
+    assert not got[0][1].any() and not got[3][1].any()
+    differ, err = rm.kept_mismatch(got[:2], want[:2], n_samples, 0.05)
+    assert differ == 0 and err <= 1e-5
+    assert int((got[0] > 0).sum()) > 100
+
+
+@pytest.mark.parametrize("capacity", [4096, 300])
+def test_ray_march_scene_selection_on_card(cuda, capacity):
+    """The batched per-view selection and payload on the card equal the
+    same functions on the CPU, on the kernel's own output.  The valid views
+    keep about 4,100, 870 and 870 samples: capacity 4096 mixes the ranked
+    branch (view 0) and the compact one in one batch, 300 ranks every
+    valid view."""
+    h, w, dim, vs = 60, 80, (128, 96, 48), 0.04
+    tsdf, proj, valid = _rm_scene(cuda, 4, h, w, dim, vs)
+    o, d = rm.get_ray_parameters(proj, h, w)
+    weight, sample, _, _ = rm.march_rays_cuda(
+        o, d, valid, tsdf, rm.build_occupancy(tsdf, 8), (0.0, 0.0, 0.0), vs,
+        300, 0.05, 8, 48, 8)
+    t_one = math.sqrt(sum(n * n for n in dim)) * vs / 300
+    views = torch.arange(4, device=cuda)
+    got = rm._points(weight, sample, o, d, views, t_one, w, capacity)
+    want = rm._points(*(t.cpu() for t in (weight, sample, o, d, views)),
+                      t_one, w, capacity)
+    counts = (weight > 0).flatten(1).sum(1).cpu()
+    assert (counts[[0, 2, 3]] > 300).all() and counts[1] == 0
+    assert (counts > 4096).any() and (counts[[2, 3]] <= 4096).all()
+    for g, c in zip(got, want):
+        assert torch.equal(g.cpu(), c)
 
 
 @pytest.mark.parametrize("xalign", [bp_probe.XALIGN, 1])

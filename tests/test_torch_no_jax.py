@@ -19,6 +19,7 @@ import cnrma_torch.ops.ray_marching, cnrma_torch.ops.sparse
 import cnrma_torch.timing
 import cnrma_torch.tools.bp_probe, cnrma_torch.tools.feature_probe
 import cnrma_torch.tools.gather_probe, cnrma_torch.tools.trace_check
+import cnrma_torch.tools.stage_times
 from cnrma_torch.models.cn_rma import CNRMA
 from cnrma_torch.models.fcaf3d import DetectionCapacities
 torch.manual_seed(0)

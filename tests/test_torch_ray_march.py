@@ -2,7 +2,9 @@
 ray_marching.py``) with the JAX package, on the CPU.
 
 The coarse pass is held against the JAX coarse pass with its Pallas lookup
-kernel K2 in interpret mode.  Rays and samples are computed in fp32 by
+kernel K2 in interpret mode; the scene-level march (all views at once, the
+path whose CUDA kernel is ``csrc/ray_march.cu``) against the JAX
+``ray_march_neus`` run per view.  Rays and samples are computed in fp32 by
 both packages with ulp-level differences (a 4x4 inverse and a matmul), so
 the comparisons mask what those ulps may flip (ROADMAP F6): rays with a
 sample within 1e-4 of a voxel-rounding boundary, and kept samples whose
@@ -10,6 +12,7 @@ weight is within 1e-6 of the 0.05 threshold.  Everything else is exact
 (ids, masks, kept sets) or within 1e-5 (weights, positions).
 """
 
+import functools
 import math
 
 import jax.numpy as jnp
@@ -129,26 +132,30 @@ def _points(pts, o, t_one):
     return out
 
 
-@pytest.mark.parametrize("skip,capacity", [(False, 4096), (True, 4096),
-                                           (True, 150)])
-def test_ray_march_neus_kept_points(monkeypatch, skip, capacity):
-    """Kept point sets, weights and positions against the JAX marcher
-    (coarse pass through K2 in interpret mode when skipping); capacity 150
-    overflows and takes the weight-ranked branch."""
-    monkeypatch.setenv("CNRMA_RAY_PALLAS", "interpret")
-    proj, tsdf = _camera(2), _tsdf(2)
-    n_samples, step = 64, 8
+@functools.lru_cache(maxsize=None)
+def _jax_march(cam: int, skip: bool, capacity: int):
+    """The JAX marcher on view ``_camera(cam)`` of ``_tsdf(2)`` (coarse pass
+    through K2 in interpret mode when skipping), as view 3; kept across
+    tests, since the interpreted kernel dominates their time."""
+    proj, tsdf = _camera(cam), _tsdf(2)
     occ = jrm.build_occupancy(jnp.asarray(tsdf), 8) if skip else None
-    kw = dict(view_index=3, n_samples=n_samples, capacity=capacity,
-              skip_factor=8, skip_window=48, coarse_step=step)
-    want = jrm.ray_march_neus(jnp.asarray(proj), jnp.asarray(tsdf), DIM, VS,
-                              jnp.zeros(3, jnp.float32), H, W,
-                              occupancy=occ, **kw)
-    got = trm.ray_march_neus(
-        torch.from_numpy(proj), torch.from_numpy(tsdf), DIM, VS,
-        (0.0, 0.0, 0.0), H, W,
-        occupancy=None if occ is None else torch.from_numpy(np.array(occ)),
-        **kw)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CNRMA_RAY_PALLAS", "interpret")
+        return jrm.ray_march_neus(jnp.asarray(proj), jnp.asarray(tsdf), DIM,
+                                  VS, jnp.zeros(3, jnp.float32), H, W,
+                                  occupancy=occ, **_march_kw(capacity),
+                                  view_index=3)
+
+
+def _march_kw(capacity):
+    return dict(n_samples=64, capacity=capacity, skip_factor=8,
+                skip_window=48, coarse_step=8)
+
+
+def _assert_same_points(want, got, proj):
+    """Kept point sets, weights and positions of one view equal, masked as
+    the module docstring says."""
+    n_samples, step = 64, 8
     o, d = (np.asarray(a) for a in jrm.get_ray_parameters(
         jnp.asarray(proj), H, W))
     t_one = math.sqrt(sum(n * n for n in DIM)) * VS / n_samples
@@ -166,17 +173,120 @@ def test_ray_march_neus_kept_points(monkeypatch, skip, capacity):
     for k in keys:
         np.testing.assert_allclose(tp[k][0], jp[k][0], atol=1e-5)
         np.testing.assert_allclose(tp[k][1], jp[k][1], atol=1e-5)
+
+
+@pytest.mark.parametrize("skip,capacity", [(False, 4096), (True, 4096),
+                                           (True, 150)])
+def test_ray_march_neus_kept_points(skip, capacity):
+    """Kept point sets, weights and positions against the JAX marcher
+    (coarse pass through K2 in interpret mode when skipping); capacity 150
+    overflows and takes the weight-ranked branch."""
+    proj, tsdf = _camera(2), _tsdf(2)
+    want = _jax_march(2, skip, capacity)
+    occ = trm.build_occupancy(torch.from_numpy(tsdf), 8) if skip else None
+    got = trm.ray_march_neus(
+        torch.from_numpy(proj), torch.from_numpy(tsdf), DIM, VS,
+        (0.0, 0.0, 0.0), H, W, occupancy=occ, view_index=3,
+        **_march_kw(capacity))
+    _assert_same_points(want, got, proj)
     assert set(np.asarray(got.view)[np.asarray(got.weight) > 0]) == {3}
     if capacity == 150:
         assert (np.asarray(want.weight) > 0).sum() == 150
 
 
+@pytest.mark.parametrize("capacity", [4096, 150])
+def test_ray_march_scene_matches_jax_per_view(capacity):
+    """The scene-level march of three views (the middle one invalid)
+    against the JAX marcher run view by view, skipping on: per valid view
+    the same kept set, weights and positions (masked as above); the invalid
+    view emits nothing.  Capacity 150 takes the ranked branch."""
+    cams = (2, 4, 3)
+    projs = np.stack([_camera(c) for c in cams])
+    tsdf = torch.from_numpy(_tsdf(2))
+    got = trm.ray_march_scene(
+        torch.from_numpy(projs), tsdf, torch.tensor([True, False, True]),
+        DIM, VS, (0.0, 0.0, 0.0), H, W,
+        occupancy=trm.build_occupancy(tsdf, 8), **_march_kw(capacity))
+    assert got.weight.shape == (3, capacity)
+    assert not got.weight[1].any() and (got.view[1] == -1).all()
+    for j in (0, 2):
+        view = trm.RayMarchPoints(*(f[j] for f in got))
+        _assert_same_points(_jax_march(cams[j], True, capacity), view,
+                            projs[j])
+        assert set(np.asarray(view.view)[np.asarray(view.weight) > 0]) \
+            == {j}
+    if capacity == 150:
+        assert ((got.weight > 0).sum(1) == torch.tensor([150, 0, 150])).all()
+
+
+def test_select_topk_batched_rows():
+    """``_select_topk`` on [V, n]: each row equals the JAX selection of
+    that row, slot for slot, with one row under capacity (compact branch)
+    and one over it (ranked branch) in the same batch."""
+    rng = np.random.RandomState(0)
+    w = np.zeros((3, 60), np.float32)
+    w[0, rng.choice(60, 5, replace=False)] = rng.rand(5)
+    w[1, rng.choice(60, 30, replace=False)] = rng.randint(1, 6, 30) / 10
+    w[2, :] = 0                                  # a view that keeps nothing
+    got = trm._select_topk(torch.from_numpy(w), 12).numpy()
+    assert got.shape == (3, 12)
+    for row in range(3):
+        want = np.asarray(jrm._select_topk(jnp.asarray(w[row]), 12))
+        np.testing.assert_array_equal(got[row], want)
+    assert (got[0] >= 0).sum() == 5 and (got[1] >= 0).all()
+
+
+def test_march_rays_plain_views_and_coarse():
+    """The plain scene march: an invalid view emits nothing; a valid
+    view's j0/has_hit are those of ``coarse_march_plain``, its kept samples
+    lie in its fine window, and its weights are in descending order."""
+    projs = torch.from_numpy(np.stack([_camera(0), _camera(1)]))
+    tsdf = torch.from_numpy(_tsdf(0))
+    occ = trm.build_occupancy(tsdf, 8)
+    o, d = trm.get_ray_parameters(projs, H, W)
+    n_samples, step = 64, 8
+    w, smp, j0, hit = trm.march_rays_plain(
+        o, d, torch.tensor([False, True]), tsdf, occ, (0.0, 0.0, 0.0), VS,
+        n_samples, 0.05, 8, 48, step)
+    assert w.shape == smp.shape == (2, H * W, 20)
+    assert not w[0].any() and not smp[0].any() and not j0[0].any() \
+        and not hit[0].any()
+    t_one = math.sqrt(sum(n * n for n in DIM)) * VS / n_samples
+    cj0, chit = trm.coarse_march_plain(o[1], d[1], occ, torch.zeros(3),
+                                       t_one, step, n_samples // step,
+                                       VS * 8)
+    assert torch.equal(j0[1], cj0) and torch.equal(hit[1], chit)
+    start = (cj0 * step - step).clamp(0, n_samples - 48)[:, None]
+    kept = w[1] > 0
+    assert kept.any() and (w[1][:, :-1] >= w[1][:, 1:]).all()
+    assert ((smp[1] >= start) & (smp[1] < start + 48))[kept].all()
+    assert hit[1][kept.any(1)].all()
+
+
 def test_cpu_wrapper_counts_no_launch():
-    o, d = trm.get_ray_parameters(torch.from_numpy(_camera(0)), H, W)
-    occ = trm.build_occupancy(torch.from_numpy(_tsdf(0)), 8)
-    before = trm.COARSE_MARCH.launches
-    got = trm.coarse_march(o, d, occ, torch.zeros(3), 0.01, 8, 38, 0.32)
-    want = trm.coarse_march_plain(o, d, occ, torch.zeros(3), 0.01, 8, 38,
-                                  0.32)
-    assert trm.COARSE_MARCH.launches == before
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    o, d = trm.get_ray_parameters(torch.from_numpy(_camera(0))[None], H, W)
+    tsdf = torch.from_numpy(_tsdf(0))
+    occ = trm.build_occupancy(tsdf, 8)
+    args = (o, d, torch.ones(1, dtype=torch.bool), tsdf, occ,
+            (0.0, 0.0, 0.0), VS, 64, 0.05, 8, 48, 8)
+    before = trm.RAY_MARCH.launches
+    got = trm.march_rays(*args)
+    want = trm.march_rays_plain(*args)
+    assert trm.RAY_MARCH.launches == before
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("scene", [True, False])
+def test_ray_march_refuses_tsdf_off_voxel_dim(scene):
+    """The march spaces samples by the TSDF's shape and the payload places
+    points by ``voxel_dim``: a TSDF of another shape is refused."""
+    tsdf = torch.from_numpy(_tsdf(0))[:, :, :-8]
+    proj = torch.from_numpy(_camera(0))
+    with pytest.raises(ValueError, match="is not voxel_dim"):
+        if scene:
+            trm.ray_march_scene(proj[None], tsdf, torch.ones(1, dtype=bool),
+                                DIM, VS, (0.0, 0.0, 0.0), H, W)
+        else:
+            trm.ray_march_neus(proj, tsdf, DIM, VS, (0.0, 0.0, 0.0), H, W,
+                               view_index=0)
