@@ -8,7 +8,11 @@ input against the CPU reference path.
 
 Phases (each prints a few lines; any failure raises and exits non-zero):
   1. device: CUDA required; card name and power limit from nvidia-smi.
-  2. build: every kernel source in cnrma_torch/csrc through nvcc.
+  2. build: every kernel source in cnrma_torch/csrc through nvcc; then
+     ``cuobjdump`` of the library: the dot kernel's SASS must hold the
+     tensor cores' warpgroup MMA (HGMMA) and the TMA load (UTMALDG), and
+     the registers and local memory of the dot and flat gather kernels
+     are logged.
   3. volume kernel vs plain at the full_ship shape (50 views of
      [120, 160, 32], 256x256x96 voxels at 4 cm), fp32 and bf16; the
      pixel-row reads (hits) against the distinct rows.
@@ -27,17 +31,21 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
   6. reference: a tiny scene in fp32 on the GPU (kernels) and on the CPU
      (plain versions), same parameters and draw; TSDFs, points and boxes
      must agree.
-  7. probes: the three probe tools (``cnrma_torch.tools.bp_probe bench``,
-     ``gather_probe``, ``feature_probe``) at their bench shapes, with the
-     launch counts set to 0 before and read after; then each of their
-     kernels against its plain version (tolerance 0: every one is a copy,
-     a gather or an exact product) and timed beside it and beside the one
-     PyTorch call that computes the same function, where there is one.
+  7. probes: first the dot kernel on random integers in [-4, 4] at the
+     probe's 128x256x128 (exact in fp32, tolerance 0; the probe's own
+     all-ones input cannot see a permuted row or column); then the three
+     probe tools (``cnrma_torch.tools.bp_probe bench``, ``gather_probe``,
+     ``feature_probe``) at their bench shapes, with the launch counts set
+     to 0 before and read after; then each of their kernels against its
+     plain version (tolerance 0: every one is a copy, a gather or an exact
+     product) and timed beside it and beside the one PyTorch call that
+     computes the same function, where there is one.
   8. device time: every kernel's device time per call in a
      ``torch.profiler`` trace (``device_ms``: its own ``__global__``
-     function only), and its library call's (``library_device_ms``: all
-     the call's device work); last, because a profiler session slows the
-     host's later launches.
+     function only), its library call's (``library_device_ms``: all the
+     call's device work), and the launch floor (``floor_ms``, on every
+     row: the device time of an empty kernel, one block of 32 threads);
+     last, because a profiler session slows the host's later launches.
 Every kernel row carries its bound: the larger of the bytes its function
 must move (each input read once, each output written once, counted from
 this run's data) over 3.35 TB/s and its operations over the peak rate of
@@ -49,6 +57,7 @@ kernel table as JSON; the last line is the device record.
 
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -139,12 +148,64 @@ def phase_device() -> str:
     return name
 
 
+# instructions each kernel's SASS must hold: the dot kernel runs on the
+# tensor cores through wgmma (HGMMA) fed by TMA loads (UTMALDG)
+SASS_MUST_HOLD = {"dot_kernel": ("HGMMA", "UTMALDG")}
+RESOURCES_LOGGED = ("dot_kernel", "flat_gather_kernel")
+
+
+def _functions(text: str, pattern: str) -> dict:
+    """``cuobjdump`` output split per function: {mangled name: its text}."""
+    parts = re.split(pattern, text)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
+def _named(functions: dict, kernel: str) -> str:
+    """The text of the one function named ``kernel``, matched by its
+    length-prefixed mangled name, so that a longer name ending in the same
+    words does not match."""
+    found = [text for name, text in functions.items()
+             if f"{len(kernel)}{kernel}" in name]
+    if len(found) != 1:
+        raise AssertionError(f"cuobjdump: {len(found)} functions named "
+                             f"{kernel}")
+    return found[0]
+
+
+def sass_check() -> None:
+    """``cuobjdump`` of the built library: raise unless each kernel of
+    ``SASS_MUST_HOLD`` holds its instructions; log the registers and local
+    memory of ``RESOURCES_LOGGED``."""
+    from cnrma_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+
+    def dump(flag):
+        return subprocess.run([tool, flag, str(_build.library_path())],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+    sass = _functions(dump("-sass"), r"\n\s*Function : (\S+)")
+    for kernel, ops in SASS_MUST_HOLD.items():
+        text = _named(sass, kernel)
+        missing = [op for op in ops if op not in text]
+        if missing:
+            raise AssertionError(f"{kernel}: SASS holds no {missing}")
+        log(f"[build] {kernel} SASS holds " + ", ".join(
+            f"{op} x{text.count(op)}" for op in ops))
+    usage = _functions(dump("-res-usage"), r"Function (\S+):")
+    for kernel in RESOURCES_LOGGED:
+        text = _named(usage, kernel)
+        regs = re.search(r"REG:(\d+)", text).group(1)
+        local = re.search(r"LOCAL:(\d+)", text).group(1)
+        log(f"[build] {kernel}: {regs} registers, {local} B local memory")
+
+
 def phase_build() -> None:
     from cnrma_torch.ops import _build
     t0 = time.perf_counter()
     _build.library()
     log(f"[build] kernels ready in {time.perf_counter() - t0:.2f} "
         f"s from {_build.CSRC}")
+    sass_check()
 
 
 def full_ship_projections(dev) -> torch.Tensor:
@@ -548,12 +609,33 @@ def phase_reference(dev) -> None:
         raise AssertionError("GPU boxes disagree with the CPU reference")
 
 
+def dot_integer_check(dev) -> None:
+    """The dot kernel at the probe's 128x256x128 on random integers in
+    [-4, 4] (seed 0): every product and sum is exact in fp32, so it must
+    equal its plain version (tolerance 0) and a row or column read from the
+    wrong place shows."""
+    from cnrma_torch.tools import feature_probe
+    rng = np.random.RandomState(0)
+    a, b = (torch.from_numpy(rng.randint(-4, 5, shape)).to(dev,
+                                                           torch.bfloat16)
+            for shape in ((128, 256), (256, 128)))
+    got = feature_probe.dot_cuda(a, b)
+    err = float((got - feature_probe.dot_plain(a, b)).abs().max())
+    log(f"[probes] dot on random integers, 128x256x128: max|err| {err:g} "
+        f"(tolerance 0)")
+    if err != 0.0:
+        raise AssertionError("dot kernel: a layout fault, random integers "
+                             "differ from the plain version")
+
+
 def phase_probes(dev):
-    """The probe tools' own path (their CLIs' functions at the bench
-    shapes), then each of their kernels against its plain version.  Gives
-    the kernel rows and, per row, the kernel and library calls."""
+    """The dot kernel on random integers, the probe tools' own path (their
+    CLIs' functions at the bench shapes), then each of their kernels
+    against its plain version.  Gives the kernel rows and, per row, the
+    kernel and library calls."""
     from cnrma_torch.tools import bp_probe, feature_probe, gather_probe
     t0 = time.perf_counter()
+    dot_integer_check(dev)
     tools = ((bp_probe, ["bench"]), (gather_probe, []), (feature_probe, []))
     cases = [c for tool, _ in tools for c in tool.bench_cases(dev)]
     for c in cases:
@@ -602,11 +684,22 @@ def phase_device_time(dev, rows, probe_calls) -> None:
     """Each kernel's device time per call (``device_ms``), and its library
     call's where there is one, from profiler traces; K1 and K2 on the bf16
     volume and the ray-march scene of their phases, inputs made again here
-    so that no phase before holds them.  Last of all: once a profiler
-    session has run, CUPTI's launch callbacks stay on and slow every later
-    launch on the host, so host-timed phases come first."""
+    so that no phase before holds them (K1's fp32 time is logged beside
+    its bf16 row).  The launch floor (``floor_ms``, the device time of the
+    empty kernel) goes on every row.  Last of all: once a profiler session
+    has run, CUPTI's launch callbacks stay on and slow every later launch
+    on the host, so host-timed phases come first."""
     from cnrma_torch.ops import backproject as bp
     from cnrma_torch.ops import ray_marching as rm
+    from cnrma_torch.tools import feature_probe
+    floor = device_ms(lambda: feature_probe.empty_cuda(dev), "empty_kernel",
+                      reps=50)
+    log(f"[device time] launch floor (empty kernel): {fmt_ms(floor)}")
+    vol32 = volume_args(dev, torch.float32)
+    fp32_ms = device_ms(lambda: bp.volume_accum_cuda(*vol32),
+                        "volume_accum_kernel")
+    log(f"[device time] volume_accum fp32: kernel {fmt_ms(fp32_ms)}")
+    del vol32
     vol = volume_args(dev, torch.bfloat16)
     rays = ray_args(dev)
     calls = [("volume_accum_kernel", lambda: bp.volume_accum_cuda(*vol),
@@ -617,10 +710,11 @@ def phase_device_time(dev, rows, probe_calls) -> None:
         row["device_ms"] = device_ms(kernel, symbol)
         row["library_device_ms"] = (None if library is None
                                     else device_ms(library))
+        row["floor_ms"] = floor
         log(f"[device time] {row['name']}: kernel "
             f"{fmt_ms(row['device_ms'])}, library "
             f"{fmt_ms(row['library_device_ms'])}, bound "
-            f"{row['bound_ms']:.6f} ms")
+            f"{row['bound_ms']:.6f} ms, floor {fmt_ms(floor)}")
 
 
 def main() -> None:

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "cnrma_flat_gather": [_P, _P, _P, _I, _I, _P],
     "cnrma_probe_basic": [_P, _P, _I, _P],
     "cnrma_probe_dot": [_P, _P, _P, _I, _I, _I, _P],
+    "cnrma_probe_empty": [_P],
     "cnrma_probe_dyn_slice": [_P, _P, _P, _I, _I, _I, _P],
     "cnrma_probe_prefetch": [_P, _P, _P, _I, _I, _I, _P],
     "cnrma_probe_alias": [_P, _P, _I, _P],
@@ -119,12 +120,17 @@ def _compile(out: Path) -> None:
         obj.unlink()
 
 
+def library_path() -> Path:
+    """Where the kernel library of these sources and flags is built."""
+    return BUILD_ROOT / _digest() / LIB_NAME
+
+
 def library() -> ctypes.CDLL:
     """The kernel library, built on first call."""
     global _lib
     with _lock:
         if _lib is None:
-            out = BUILD_ROOT / _digest() / LIB_NAME
+            out = library_path()
             if not out.exists():
                 _compile(out)
             lib = ctypes.CDLL(str(out))

@@ -7,7 +7,8 @@ built through ``cnrma_torch/ops/_build.py`` (``sm_90a``, ``ctypes``), run
 on the probe's inputs and compared exactly with the probe's ``want``:
 
     basic      x + 1 on [8, 128]
-    dot        [128, 256] @ [256, 128], bf16 in, fp32 out, tensor cores
+    dot        [128, 256] @ [256, 128], bf16 in, fp32 out, on the tensor
+               cores (wgmma) from operands that TMA brings into shared memory
     dyn_slice  rows [s, s + 8) of [64, 128], s read on the device
     prefetch   block k of [4, 8, 128] doubled into block tids[k]
     alias      acc += x on [8, 128], in place (the result is acc itself)
@@ -15,7 +16,8 @@ on the probe's inputs and compared exactly with the probe's ``want``:
                memory above 48 KB; exact against the bf16-rounded table
     dma        rows 8-15 of [64, 128] by a bulk asynchronous copy, doubled
 
-On a CPU tensor each runs its plain torch version instead.
+On a CPU tensor each runs its plain torch version instead.  ``empty_cuda``
+launches an empty kernel, whose device time is the least a launch takes.
 
     python -m cnrma_torch.tools.feature_probe [name ...] [--device cpu]
 
@@ -39,6 +41,7 @@ from cnrma_torch.tools._common import (KernelCase, add_device_arg, describe,
 
 NAMES = ("basic", "dot", "dyn_slice", "prefetch", "alias", "onehot", "dma")
 LAUNCHES = {name: _build.LaunchCounter() for name in NAMES}
+EMPTY = _build.LaunchCounter()
 _TPU_LINE = dict(basic=57, dot=67, dyn_slice=77, prefetch=95, alias=110,
                  onehot=126, dma=143)
 MAX_SHARED = 232448       # dynamic shared memory a block may opt in to
@@ -71,7 +74,9 @@ def dot_plain(a, b):
 
 def dot_cuda(a, b):
     """``a @ b`` for bf16 ``a [M, K]``, ``b [K, N]`` with M, N, K multiples
-    of 16, as fp32, on the tensor cores."""
+    of 16, as fp32, on the tensor cores: wgmma on 64x64 tiles of the
+    result, fed by TMA.  A tensor map that cannot be encoded or a launch
+    that fails raises."""
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
         raise TypeError("dot takes bf16 operands")
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
@@ -87,6 +92,12 @@ def dot_cuda(a, b):
     _launch("dot", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), M,
             N, K)
     return out
+
+
+def empty_cuda(dev: torch.device) -> None:
+    """Launch the empty kernel (one block of 32 threads, no memory) on
+    ``dev``: its device time is the least a launch takes."""
+    _build.launch("cnrma_probe_empty", EMPTY, dev)
 
 
 def dyn_slice_plain(start, x, rows: int):

@@ -11,7 +11,9 @@ take their cumulative sum in another order than torch's CUDA ``cumsum``:
 its j0/has_hit are equal, its kept sets equal outside samples within 1e-5
 of the weight threshold, and its weights agree to 1e-5.  The probe kernels
 copy, gather or multiply small integers, so they must equal their plain
-versions exactly.
+versions exactly; the tensor-core ``dot`` is held on random integers, which
+show a row or column read from the wrong place where all-ones inputs do
+not.
 """
 
 import math
@@ -199,6 +201,65 @@ def test_probe_kernels_refuse_wide_indices(cuda):
         gather_probe.flat_gather_cuda(table, wide[0])
 
 
+def _int_bf16(rng, shape, dev):
+    """Random integers in [-4, 4] as bf16: their products and sums are exact
+    in fp32, so a kernel that reads one element in the wrong place shows."""
+    return torch.from_numpy(rng.randint(-4, 5, shape)).to(dev, torch.bfloat16)
+
+
+@pytest.mark.parametrize("M,K,N", [(128, 256, 128), (16, 16, 16),
+                                   (48, 64, 192), (128, 512, 128)],
+                         ids=["probe", "one_box_corner", "m48_n192",
+                              "k512_ring"])
+def test_dot_kernel_exact_on_integers(cuda, M, K, N):
+    """The wgmma kernel on random integers, tolerance 0: the probe's shape
+    (whose own all-ones input cannot see a permuted row or column), one
+    16x16x16 corner of a TMA box, M and N that are not multiples of the
+    64-wide tile, and K = 512, which goes around the ring of 4 stages."""
+    rng = np.random.RandomState(M + K + N)
+    a, b = _int_bf16(rng, (M, K), cuda), _int_bf16(rng, (K, N), cuda)
+    before = feature_probe.LAUNCHES["dot"].launches
+    got = feature_probe.dot_cuda(a, b)
+    torch.cuda.synchronize()
+    assert feature_probe.LAUNCHES["dot"].launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    assert torch.equal(got, feature_probe.dot_plain(a, b))
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 1003])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_flat_gather_kernel_edges(cuda, n, offset):
+    """The flat gather at its edges: n of 1, 3 and 5 (less than a warp) and
+    1003 (a ragged last block), an index tensor that starts one element
+    past a 16-byte boundary, and indices outside the table at the head,
+    the middle and the tail (0 there)."""
+    rng = np.random.RandomState(n + offset)
+    table = torch.from_numpy(rng.rand(96 * 128).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.randint(0, table.numel(), n + offset)
+                           .astype(np.int32)).to(cuda)[offset:]
+    if offset:
+        assert idx.data_ptr() % 16 == 4
+    bad = [-1, table.numel(), 2 ** 31 - 1]
+    for pos, value in zip([0, n // 2, n - 1], bad):
+        idx[pos] = value
+    got = gather_probe.flat_gather_cuda(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather_probe.flat_gather_plain(table, idx))
+    assert got[0] == 0 and got[n - 1] == 0 and got[n // 2] == 0
+
+
+def test_flat_gather_kernel_at_probe_size(cuda):
+    """The probe's full size: 5.76M queries into the 2.95M-element table,
+    with the index tensor offset by one element."""
+    rng = np.random.RandomState(0)
+    flat, _, idx = gather_probe.tables(rng, cuda, gather_probe.ROWS,
+                                       gather_probe.HW * gather_probe.NS + 1)
+    idx = idx[1:]
+    got = gather_probe.flat_gather_cuda(flat, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather_probe.flat_gather_plain(flat, idx))
+
+
 def test_gather_probe_kernels_match_plain(cuda):
     rows = 96
     rng = np.random.RandomState(0)
@@ -227,7 +288,7 @@ def test_feature_probe_kernel_matches_plain(cuda, name):
 
 
 def test_feature_probe_kernels_off_the_probe_shapes(cuda):
-    """dot on integer matrices of other shapes (exact in fp32), onehot with
+    """dot on integer matrices of another shape (exact in fp32), onehot with
     indices outside the table and a table above 64 KB, dyn_slice with a
     start past the end (clamped), prefetch with a skipped id."""
     rng = np.random.RandomState(1)

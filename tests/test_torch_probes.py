@@ -7,7 +7,8 @@ P1's plain version is held against the probe's own Pallas kernel in
 interpret mode and against its numpy oracle.  The P2 and P3 Pallas kernels
 are closures inside the probes' ``main``, which run only on a TPU; for them
 the probes' own reference expressions stand in (``t_np[i_np, arange]``,
-``table_flat[idx_flat]`` and the seven ``want``s).
+``table_flat[idx_flat]`` and the seven ``want``s), and P3's ``dot`` body is
+restated in an interpret-mode ``pallas_call``.
 """
 
 import importlib.util
@@ -112,6 +113,32 @@ def test_feature_probe_plain_matches_want(name):
     assert np.array_equal(out.numpy(), want)
     if name == "alias":
         assert out.data_ptr() == args[0].data_ptr()
+
+
+def test_dot_plain_matches_pallas_interpret():
+    """``dot_plain`` against the P3 probe's ``dot`` kernel body
+    (``jnp.dot(..., preferred_element_type=jnp.float32)``, restated in a
+    ``pl.pallas_call`` in interpret mode, since the probe's own runs only
+    on a TPU), on random integers in [-4, 4] at the probe's shape: exact
+    in fp32, and unlike the probe's all-ones input, a permuted row or
+    column shows."""
+    from jax.experimental import pallas as pl
+
+    def kernel(a_ref, b_ref, o_ref):
+        o_ref[:] = jnp.dot(a_ref[:], b_ref[:],
+                           preferred_element_type=jnp.float32)
+    rng = np.random.RandomState(0)
+    a = rng.randint(-4, 5, (128, 256)).astype(np.float32)
+    b = rng.randint(-4, 5, (256, 128)).astype(np.float32)
+    want = pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct((128, 128), jnp.float32),
+        interpret=True)(jnp.asarray(a, jnp.bfloat16),
+                        jnp.asarray(b, jnp.bfloat16))
+    got = feature_probe.run("dot", torch.from_numpy(a).bfloat16(),
+                            torch.from_numpy(b).bfloat16())
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert np.abs(np.asarray(want)).max() > 8
 
 
 @pytest.mark.parametrize("tool,argv", [
