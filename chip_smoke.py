@@ -11,8 +11,8 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
   2. build: every kernel source in cnrma_torch/csrc through nvcc; then
      ``cuobjdump`` of the library: the dot kernel's SASS must hold the
      tensor cores' warpgroup MMA (HGMMA) and the TMA load (UTMALDG), and
-     the registers and local memory of the dot and flat gather kernels
-     are logged.
+     the registers and local memory of the dot, flat gather, lane gather
+     and onehot kernels are logged.
   3. volume kernel vs plain at the full_ship shape (50 views of
      [120, 160, 32], 256x256x96 voxels at 4 cm), fp32 and bf16; the
      pixel-row reads (hits) against the distinct rows.
@@ -151,7 +151,8 @@ def phase_device() -> str:
 # instructions each kernel's SASS must hold: the dot kernel runs on the
 # tensor cores through wgmma (HGMMA) fed by TMA loads (UTMALDG)
 SASS_MUST_HOLD = {"dot_kernel": ("HGMMA", "UTMALDG")}
-RESOURCES_LOGGED = ("dot_kernel", "flat_gather_kernel")
+RESOURCES_LOGGED = ("dot_kernel", "flat_gather_kernel", "lane_gather_kernel",
+                    "onehot_kernel")
 
 
 def _functions(text: str, pattern: str) -> dict:

@@ -15,9 +15,9 @@
 //   prefetch   block k reads tids[k] itself and writes 2 x[k] to out block
 //              tids[k]                      (scalar-prefetch index map)
 //   alias      acc += x in place                    (input_output_aliases)
-//   onehot     out = float(tab[idx]) from a bf16 table staged in dynamic
-//              shared memory above 48 KB (64 KB at the probe's shape), 0
-//              where idx is outside the table  (one-hot gather-by-matmul)
+//   onehot     out = float(tab[idx]), each thread loading 8 bf16 of a
+//              table row (16 bytes) and storing them widened as two float4,
+//              0 where idx is outside the table  (one-hot gather-by-matmul)
 //   dma        rows [row0, row0 + rows) copied global -> shared by one
 //              bulk asynchronous copy completed on an mbarrier, then
 //              doubled                           (make_async_copy HBM->VMEM)
@@ -29,6 +29,23 @@
 // library's route (-gencode arch=compute_90a,code=sm_90a, ctypes) and gives
 // exact results: every check is a copy, a gather or a product of small
 // integers, so results equal the plain torch versions bit for bit.
+//
+// onehot is a direct row gather: on Hopper a gather by index is a load, and
+// the MXU one-hot was the TPU's way around having none.  The form it
+// replaced staged the whole table in each block's dynamic shared memory
+// (64 KB at the probe's shape, 8 blocks: 512 KB of loads for the 32 KB that
+// 128 indices reach) behind a block barrier and raised the shared-memory
+// attribute on every launch: 0.00501 ms device, 5.7x an empty launch, on an
+// H100 SXM (700 W).  The direct gather's cost is two dependent L2 round
+// trips (the index, then the row) and 64 KB of stores: 1.53-1.54x the
+// empty launch in blocks of 16 x 4 threads.  In other calls 1-D blocks of
+// 32 or 64 threads, one a piece (which divide to find their row), measured
+// 1.55-1.57x, and 1-D blocks of 256 1.74-1.81x (loads and stores through 8
+// SMs, not 32-64); dyn_slice, the other kernel with two dependent loads,
+// 1.39-1.46x.  The 16 x 4 blocks were kept on that comparison across calls
+// alone, a difference of 1-3%.
+// dot (64 KB + 1 KB) is now the library's one kernel that opts into more
+// than 48 KB of shared memory.
 //
 // dot is the library's wgmma + TMA kernel.  At the probe's 128x256x128 its byte
 // bound (160 KB, 0.05 us) and operation bound (8.4 MFLOP, 0.008 us) are far
@@ -57,7 +74,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kOnehotRows = 16;     // output rows per onehot block
+// onehot: small blocks, so that its loads and stores spread over SMs
+constexpr int kOnehotThreads = 64;
 
 // dot: a block is one warpgroup and owns a 64 x 64 tile of C
 constexpr int kDotThreads = 128;
@@ -291,24 +309,43 @@ __global__ void alias_kernel(float* __restrict__ acc,
   if (i < n) acc[i] += x[i];
 }
 
-__global__ void onehot_kernel(const int32_t* __restrict__ idx,        // [M]
-                              const __nv_bfloat16* __restrict__ tab,  // [R, D]
-                              float* __restrict__ out,                // [M, D]
-                              int M, int R, int D) {
-  extern __shared__ __align__(16) unsigned char onehot_smem[];
-  __nv_bfloat16* s_tab = reinterpret_cast<__nv_bfloat16*>(onehot_smem);
-  const int n16 = R * D / 8;                     // 16-byte chunks
-  for (int i = threadIdx.x; i < n16; i += blockDim.x)
-    reinterpret_cast<uint4*>(s_tab)[i] = reinterpret_cast<const uint4*>(tab)[i];
-  __syncthreads();
-  const int row0 = blockIdx.x * kOnehotRows;
-  for (int e = threadIdx.x; e < kOnehotRows * D; e += blockDim.x) {
-    const int r = row0 + e / D;
-    if (r >= M) break;
-    const int j = e % D;
-    const int t = idx[r];
-    out[static_cast<size_t>(r) * D + j] =
-        (t >= 0 && t < R) ? __bfloat162float(s_tab[t * D + j]) : 0.f;
+// one thread per piece of an output row: 8 elements where D is a multiple
+// of 8 and the table and output are 16-byte aligned (a 16-byte load of 8
+// bf16, two float4 stores), else one element.  A block is (pieces, rows):
+// threadIdx.y picks the row, whose index each thread reads once (the lanes
+// of a row read one address, which the load broadcasts), and no thread
+// divides to find its row.
+__global__ void __launch_bounds__(kOnehotThreads)
+onehot_kernel(const int32_t* __restrict__ idx,        // [M]
+              const __nv_bfloat16* __restrict__ tab,  // [R, D]
+              float* __restrict__ out,                // [M, D]
+              int M, int R, int D, int vec8) {
+  const int r = blockIdx.x * blockDim.y + threadIdx.y;
+  if (r >= M) return;
+  const int t = __ldg(idx + r);
+  const bool ok = static_cast<unsigned>(t) < static_cast<unsigned>(R);
+  const __nv_bfloat16* row = tab + static_cast<size_t>(ok ? t : 0) * D;
+  float* dst = out + static_cast<size_t>(r) * D;
+  const int pieces = vec8 ? D / 8 : D;
+  for (int q = blockIdx.y * blockDim.x + threadIdx.x; q < pieces;
+       q += gridDim.y * blockDim.x) {
+    if (!vec8) {
+      dst[q] = ok ? __bfloat162float(row[q]) : 0.f;
+      continue;
+    }
+    float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+    if (ok) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(row) + q);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+      const float2 f0 = __bfloat1622float2(h[0]);
+      const float2 f1 = __bfloat1622float2(h[1]);
+      const float2 f2 = __bfloat1622float2(h[2]);
+      const float2 f3 = __bfloat1622float2(h[3]);
+      lo = make_float4(f0.x, f0.y, f1.x, f1.y);
+      hi = make_float4(f2.x, f2.y, f3.x, f3.y);
+    }
+    reinterpret_cast<float4*>(dst)[2 * q] = lo;
+    reinterpret_cast<float4*>(dst)[2 * q + 1] = hi;
   }
 }
 
@@ -462,17 +499,19 @@ extern "C" int cnrma_probe_alias(void* acc, const void* x, int n,
 
 extern "C" int cnrma_probe_onehot(const void* idx, const void* tab, void* out,
                                   int M, int R, int D, void* stream) {
-  if ((R * D) % 8) return static_cast<int>(cudaErrorInvalidValue);
-  if (M == 0) return static_cast<int>(cudaSuccess);
-  const int shmem = R * D * static_cast<int>(sizeof(__nv_bfloat16));
-  cudaError_t err = cudaFuncSetAttribute(
-      onehot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  onehot_kernel<<<(M + kOnehotRows - 1) / kOnehotRows, kThreads, shmem,
-                  static_cast<cudaStream_t>(stream)>>>(
+  if (static_cast<long long>(M) * D == 0) return static_cast<int>(cudaSuccess);
+  const int vec8 = D % 8 == 0 && reinterpret_cast<uintptr_t>(tab) % 16 == 0
+                   && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int pieces = vec8 ? D / 8 : D;
+  const int bx = pieces < 32 ? pieces : 32;
+  const dim3 block(bx, kOnehotThreads / bx);     // 16 x 4 at D = 128
+  const int by_pieces = (pieces + bx - 1) / bx;
+  const dim3 grid((M + block.y - 1) / block.y,
+                  by_pieces < 65535 ? by_pieces : 65535);
+  onehot_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(idx),
       static_cast<const __nv_bfloat16*>(tab), static_cast<float*>(out), M, R,
-      D);
+      D, vec8);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,6 +17,18 @@
 // for the ray march.  lane_gather's reads are coalesced too when a warp's
 // rows agree.
 //
+// lane_gather was measured against a column-stripe form, since column j of
+// the output reads only column j of the table: a thread block cluster of C
+// blocks held a stripe of w columns in its shared memory, rows split by
+// rank, staged with cp.async, and each thread read its element through mapa
+// + ld.shared::cluster after a cluster barrier.  On an H100 SXM (700 W), at
+// the probe's [23040, 128] table warm in L2, every form (w/C from 2/1 to
+// 32/16, one or two clusters a stripe) took 0.041-0.086 ms against this
+// kernel's 0.026: random 4-byte reads from other blocks' shared memory ran
+// at 0.74-0.92 billion a second per SM, no faster than this kernel's random
+// L2 sectors (0.86), and at 180 KB a block only 15 clusters of 8 fit at
+// once.  The stripe form was deleted; PERF.md has its table.
+//
 // Bound on the H100: bytes.  lane_gather moves idx and out (11.8 MB each)
 // and the table elements the indices reach; flat_gather the 23 MB of
 // indices, the 23 MB of results and the 10.1 MB of table elements reached

@@ -12,8 +12,9 @@ on the probe's inputs and compared exactly with the probe's ``want``:
     dyn_slice  rows [s, s + 8) of [64, 128], s read on the device
     prefetch   block k of [4, 8, 128] doubled into block tids[k]
     alias      acc += x on [8, 128], in place (the result is acc itself)
-    onehot     tab[idx] as fp32 from a 64 KB bf16 table in dynamic shared
-               memory above 48 KB; exact against the bf16-rounded table
+    onehot     tab[idx] as fp32 from a bf16 table, a direct row gather
+               (16-byte loads of 8 bf16); exact against the bf16-rounded
+               table
     dma        rows 8-15 of [64, 128] by a bulk asynchronous copy, doubled
 
 On a CPU tensor each runs its plain torch version instead.  ``empty_cuda``
@@ -44,7 +45,6 @@ LAUNCHES = {name: _build.LaunchCounter() for name in NAMES}
 EMPTY = _build.LaunchCounter()
 _TPU_LINE = dict(basic=57, dot=67, dyn_slice=77, prefetch=95, alias=110,
                  onehot=126, dma=143)
-MAX_SHARED = 232448       # dynamic shared memory a block may opt in to
 DMA_MAX_BYTES = 47 * 1024  # the dma kernel's buffer, without opting in
 
 
@@ -160,19 +160,18 @@ def onehot_plain(idx, tab):
 
 
 def onehot_cuda(idx, tab):
-    """The table ``tab [R, D]`` bf16 is staged whole in dynamic shared
-    memory; ``idx [M]``."""
+    """Rows ``idx [M]`` of the bf16 table ``tab [R, D]``, of any size, read
+    straight from device memory: 16-byte loads where D is a multiple of 8
+    and the table 16-byte aligned, one element a thread otherwise."""
     if tab.dtype != torch.bfloat16 or tab.dim() != 2:
         raise TypeError("onehot takes a 2-D bf16 table")
     R, D = tab.shape
-    if (R * D) % 8 or R * D * 2 > MAX_SHARED:
-        raise ValueError(f"onehot stages the table in shared memory: R*D "
-                         f"must be a multiple of 8 and at most "
-                         f"{MAX_SHARED // 2}")
-    if not tab.is_contiguous() or tab.data_ptr() % 16:
-        raise ValueError("tab must be contiguous and 16-byte aligned")
-    if idx.dim() != 1:
-        raise ValueError("idx must be 1-D")
+    if not tab.is_contiguous():
+        raise ValueError("tab must be contiguous")
+    if idx.dim() != 1 or tab.numel() >= 2 ** 31 \
+            or idx.shape[0] * D >= 2 ** 31:
+        raise ValueError("onehot takes a 1-D idx, and a table and result of "
+                         "< 2**31 elements each")
     idx = int32_index(idx, tab.device, "idx")
     out = torch.empty(idx.shape[0], D, dtype=torch.float32,
                       device=tab.device)

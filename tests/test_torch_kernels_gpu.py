@@ -274,6 +274,64 @@ def test_gather_probe_kernels_match_plain(cuda):
     assert not got[:3].any()
 
 
+@pytest.mark.parametrize("R,L,n_rows,offset", [
+    (23040, 128, 23040, 0),      # the probe's
+    (23041, 128, 5000, 0),       # R odd, n_rows != R
+    (97, 128, 300, 0),           # a short table
+    (23040, 20, 1000, 0),        # L not a multiple of 4 or 8
+    (23041, 20, 1000, 1),        # a table 4 bytes past 16-byte alignment
+    (23041, 4, 777, 0),          # L = 4
+    (5001, 128, 100, 0),         # few idx rows
+    (929792, 4, 100, 0),         # a tall table
+], ids=["probe", "R23041", "R97", "L20", "L20_unaligned", "L4", "R5001",
+        "tall"])
+def test_lane_gather_kernel_edges(cuda, R, L, n_rows, offset):
+    """The lane gather against the plain version, tolerance 0, with indices
+    -1, R, 0, R - 1 and the first and last row of each eighth of the table,
+    each filling the first and the last idx rows."""
+    rng = np.random.RandomState(R + L + offset)
+    flat = torch.from_numpy(rng.rand(R * L + offset).astype(np.float32))
+    table = flat.to(cuda)[offset:].view(R, L)
+    idx = rng.randint(0, R, (n_rows, L)).astype(np.int32)
+    share = -(-R // 8)
+    edges = [-1, R, 0, R - 1] + [r * share + d for r in range(1, 8)
+                                 for d in (-1, 0) if r * share + d < R]
+    assert 2 * len(edges) <= n_rows
+    idx[:len(edges)] = np.array(edges, np.int32)[:, None]
+    idx[n_rows - len(edges):] = np.array(edges[::-1], np.int32)[:, None]
+    idx = torch.from_numpy(idx).to(cuda)
+    want = gather_probe.lane_gather_plain(table, idx)
+    before = gather_probe.LANE_GATHER.launches
+    got = gather_probe.lane_gather_cuda(table, idx)
+    torch.cuda.synchronize()
+    assert gather_probe.LANE_GATHER.launches == before + 1
+    assert torch.equal(got, want)
+    assert not got[0].any() and not got[1].any()
+
+
+@pytest.mark.parametrize("M,R,D,offset", [
+    (1, 256, 128, 0), (17, 256, 128, 0), (128, 256, 128, 0),
+    (128, 2048, 128, 0),         # a 512 KB table
+    (64, 300, 24, 0),            # three 16-byte pieces a row
+    (33, 100, 20, 0),            # D not a multiple of 8: one element a thread
+    (40, 256, 128, 1),           # a table 2 bytes past 16: one element a thread
+])
+def test_onehot_kernel_edges(cuda, M, R, D, offset):
+    """The direct row gather against its plain version (tolerance 0), with
+    indices -1, R and 2**31 - 1 where M allows."""
+    rng = np.random.RandomState(M + R + D + offset)
+    buf = torch.from_numpy(rng.randn(R * D + offset)).to(cuda, torch.bfloat16)
+    tab = buf[offset:].view(R, D)
+    idx = rng.randint(0, R, M).astype(np.int32)
+    if M > 2:
+        idx[[0, M // 2, M - 1]] = [-1, R, 2 ** 31 - 1]
+    idx = torch.from_numpy(idx).to(cuda)
+    got = feature_probe.onehot_cuda(idx, tab)
+    torch.cuda.synchronize()
+    assert got.shape == (M, D)
+    assert torch.equal(got, feature_probe.onehot_plain(idx, tab))
+
+
 @pytest.mark.parametrize("name", feature_probe.NAMES)
 def test_feature_probe_kernel_matches_plain(cuda, name):
     args_k, want = feature_probe.probe_inputs(name, cuda)

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from cnrma_torch.ops import _build
 from cnrma_torch.tools import (bp_probe, feature_probe, gather_probe,
                                 trace_check)
 
@@ -199,3 +200,18 @@ def test_kernel_wrappers_refuse_wide_indices(name):
     into range where the plain version gives 0."""
     with pytest.raises(TypeError, match="must be int32"):
         _wide_index_call(name)()
+
+
+def test_onehot_takes_a_table_past_shared_memory(monkeypatch):
+    """The direct row gather stages nothing, so ``onehot_cuda`` refuses no
+    table on its size: a 2048 x 128 bf16 table (512 KB, past the 227 KB of
+    shared memory a block may hold) goes to the launcher with its shape."""
+    calls = []
+    monkeypatch.setattr(_build, "launch",
+                        lambda fn, counter, dev, *args: calls.append(
+                            (fn, args[3:])))
+    tab = torch.zeros(2048, 128, dtype=torch.bfloat16)
+    out = feature_probe.onehot_cuda(torch.zeros(5, dtype=torch.int32), tab)
+    assert calls == [("cnrma_probe_onehot", (5, 2048, 128))]
+    assert out.shape == (5, 128) and out.dtype == torch.float32
+
