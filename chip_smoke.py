@@ -31,6 +31,17 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
   6. reference: a tiny scene in fp32 on the GPU (kernels) and on the CPU
      (plain versions), same parameters and draw; TSDFs, points and boxes
      must agree.
+  6b. test CLI: two synthetic ScanNet scenes written on disk (60 frames
+     of 1296x968 JPEG, a room TSDF over the 256x256x96 grid, the planted
+     boxes as GT) through ``python -m cnrma_torch.tools.test`` with
+     ``configs/ray_marching_scannet.py`` at its own test widths and
+     default-initialised parameters saved as a ``.pt`` checkpoint; each
+     scene's four files checked, K1 and K2 launched once a scene, the
+     per-scene seconds, mesh faces, PLY bytes and peak memory printed; the
+     torch ``nms_bbox`` and ``evaluate_bbox`` on the results (mAP printed)
+     and on planted dumps equal to the GT (mAP@0.25 and mAP@0.50 exactly
+     1.0; shifted up by dz/2, mAP@0.50 exactly 0); one scene again with
+     ``CNRMA_CAPACITY_DEBUG=1``, its capacity lines printed.
   7. probes: first the dot kernel on random integers in [-4, 4] at the
      probe's 128x256x128 (exact in fp32, tolerance 0; the probe's own
      all-ones input cannot see a permuted row or column); then the three
@@ -55,13 +66,17 @@ call, so it holds the host's launch work, which dominates calls under
 kernel table as JSON; the last line is the device record.
 """
 
+import contextlib
+import io
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -610,6 +625,197 @@ def phase_reference(dev) -> None:
         raise AssertionError("GPU boxes disagree with the CPU reference")
 
 
+CLI_CONFIG = "configs/ray_marching_scannet.py"
+CLI_FILES = ("{s}.npz", "{s}.ply", "{s}_bbox_raw.npz")
+
+
+def _check_scene_files(save: str, middle: str, scene: str, dim) -> dict:
+    """Raise unless a scene's four result files hold the right keys, shapes
+    and finite values and its raw boxes are not empty; returns the counts
+    of raw boxes and middle points."""
+    d = os.path.join(save, scene)
+    for f in CLI_FILES:
+        if not os.path.isfile(os.path.join(d, f.format(s=scene))):
+            raise AssertionError(f"{scene}: {f.format(s=scene)} missing")
+    with np.load(os.path.join(d, scene + ".npz")) as z:
+        tsdf, origin = z["tsdf"], z["origin"]
+        ok = (tsdf.shape == tuple(dim) and origin.shape == (1, 3)
+              and float(z["voxel_size"]) == 0.04
+              and np.isfinite(tsdf).all() and np.isfinite(origin).all())
+    with open(os.path.join(d, scene + ".ply"), "rb") as f:
+        ok &= f.read(3) == b"ply"
+    with np.load(os.path.join(d, scene + "_bbox_raw.npz")) as z:
+        b, sc = z["bboxes"], z["scores"]
+        ok &= (b.ndim == 2 and b.shape[1] == 6 and sc.shape == (len(b), 18)
+               and len(b) > 0 and np.isfinite(b).all()
+               and np.isfinite(sc).all())
+    vert = np.load(os.path.join(middle, scene + "_vert.npy"))
+    ok &= vert.ndim == 2 and vert.shape[1] == 35 and np.isfinite(vert).all()
+    if not ok:
+        raise AssertionError(f"{scene}: a result file has the wrong keys, "
+                             f"shapes or values (raw boxes {len(b)})")
+    return {"raw_boxes": len(b), "middle_points": len(vert)}
+
+
+def _plant_dumps(data: str, out: str, scenes, shift: bool) -> None:
+    """Raw box dumps whose every prediction is a GT box of its scene (score
+    0.9 in its class, 0.001 elsewhere), optionally shifted up by dz/2."""
+    from cnrma_torch.tools.evaluate_bbox import SCANNET_CAT_IDS
+    for scene in scenes:
+        gt = np.load(os.path.join(data, "scannet_instance_data",
+                                  scene + "_aligned_bbox.npy"))
+        boxes = gt[:, :6].astype(np.float32).copy()
+        if shift:
+            boxes[:, 2] += boxes[:, 5] / 2
+        labels = [SCANNET_CAT_IDS.index(int(c)) for c in gt[:, 6]]
+        scores = np.full((len(gt), 18), 0.001, np.float32)
+        scores[np.arange(len(gt)), labels] = 0.9
+        os.makedirs(os.path.join(out, scene), exist_ok=True)
+        np.savez(os.path.join(out, scene, scene + "_bbox_raw.npz"),
+                 bboxes=boxes, scores=scores)
+
+
+def _score(data: str, results: str) -> dict:
+    from cnrma_torch.tools import evaluate_bbox, nms_bbox
+    with contextlib.redirect_stdout(io.StringIO()):
+        nms_bbox.main(["--result_path", results])
+        return evaluate_bbox.main(["--data_path", data,
+                                   "--result_path", results])
+
+
+def phase_test_cli(dev) -> None:
+    """The user's loop on the card: the torch test CLI over two synthetic
+    ScanNet scenes at the config's own test widths, then the torch NMS and
+    mAP; planted dumps whose answer is known; one scene with the capacity
+    report on."""
+    from cnrma_torch.core.builder import build_model
+    from cnrma_torch.core.config import Config
+    from cnrma_torch.ops.backproject import VOLUME_ACCUM
+    from cnrma_torch.ops.ray_marching import RAY_MARCH
+    from cnrma_torch.synthetic import write_scannet
+    from cnrma_torch.tools import test as test_cli
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="cli_", dir="build")
+    try:
+        t0 = time.perf_counter()
+        data = os.path.join(root, "data")
+        ann = write_scannet(data, n_scenes=2, n_frames=60)
+        cfg = Config.fromfile(CLI_CONFIG)
+        dim = tuple(cfg.model.voxel_dim_test)
+        torch.manual_seed(0)
+        ckpt = os.path.join(root, "init.pt")
+        torch.save(build_model(cfg).state_dict(), ckpt)
+        log(f"[cli] wrote 2 scenes (60 frames of 1296x968 JPEG, room TSDF "
+            f"over {dim}) and a default-initialised checkpoint in "
+            f"{time.perf_counter() - t0:.1f} s")
+        save, middle = os.path.join(root, "res"), os.path.join(root, "mid")
+        argv = [CLI_CONFIG, ckpt, "--save-path", save, "--middle-save-path",
+                middle, "--cfg-options", f"data.test.data_root={data}",
+                f"data.test.ann_file={ann}"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        VOLUME_ACCUM.launches = 0
+        RAY_MARCH.launches = 0
+        t0 = time.perf_counter()
+        records = test_cli.main(argv + ["--max-scenes", "2"])
+        wall = time.perf_counter() - t0
+        launches = {"volume_accum": VOLUME_ACCUM.launches,
+                    "ray_march": RAY_MARCH.launches}
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[cli] {len(records)} scenes in {wall:.2f} s; launches "
+            f"{launches}; peak memory {peak / 2 ** 30:.2f} GiB")
+        if launches != {"volume_accum": 2, "ray_march": 2}:
+            raise AssertionError(f"two scenes must launch each main-path "
+                                 f"kernel twice: {launches}")
+        scenes = sorted(os.listdir(save))
+        if scenes != ["scene0000_00", "scene0001_00"] or len(records) != 2:
+            raise AssertionError(f"--max-scenes 2 wrote {scenes}")
+        for r in records:
+            r.update(_check_scene_files(save, middle, r["scene"], dim))
+            log(f"[cli] {r['scene']}: load {r['load_s']:.3f} s (waited "
+                f"{r['wait_s']:.3f}), forward {r['forward_s']:.3f} s, write "
+                f"{r['write_s']:.3f} s (mesh {r['mesh_s']:.3f} s); "
+                f"{r['faces']} faces, {r['ply_bytes']} PLY bytes; "
+                f"{r['raw_boxes']} raw boxes, {r['middle_points']} points")
+        m = _score(data, save)
+        log(f"[cli] synthesized scenes scored: mAP@0.25 "
+            f"{m['mAP_0.25']:.4f}, mAP@0.50 {m['mAP_0.50']:.4f} (printed, "
+            f"not checked)")
+        exact = os.path.join(root, "planted")
+        _plant_dumps(data, exact, scenes, shift=False)
+        m = _score(data, exact)
+        shifted = os.path.join(root, "shifted")
+        _plant_dumps(data, shifted, scenes, shift=True)
+        ms = _score(data, shifted)
+        log(f"[cli] planted dumps: mAP@0.25 {m['mAP_0.25']}, mAP@0.50 "
+            f"{m['mAP_0.50']}; shifted up by dz/2: mAP@0.50 "
+            f"{ms['mAP_0.50']}")
+        if m["mAP_0.25"] != 1.0 or m["mAP_0.50"] != 1.0 \
+                or ms["mAP_0.50"] != 0.0:
+            raise AssertionError("torch NMS + mAP: planted predictions must "
+                                 "score exactly 1.0, shifted ones 0 at 0.5")
+        buf = io.StringIO()
+        os.environ["CNRMA_CAPACITY_DEBUG"] = "1"
+        try:
+            with contextlib.redirect_stdout(buf):
+                test_cli.main(argv + ["--max-scenes", "1", "--save-path",
+                                      os.path.join(root, "cap")])
+        finally:
+            del os.environ["CNRMA_CAPACITY_DEBUG"]
+        lines = [ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith("[capacity]")]
+        log(f"[cli] scene0000_00 with CNRMA_CAPACITY_DEBUG=1: "
+            f"{len(lines)} capacity lines")
+        for ln in lines:
+            log(f"[cli] {ln}")
+        names = {ln.split(":")[0] for ln in lines}
+        want = {"[capacity] voxelize(stride 1)",
+                "[capacity] ray-march kept samples/view",
+                "[capacity] scene points before max_points subsample"}
+        if not want <= names:
+            raise AssertionError(f"capacity report: {sorted(want - names)} "
+                                 f"missing")
+        _mesh_at_full_width(dev, root, data, dim)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _mesh_at_full_width(dev, root: str, data: str, dim) -> None:
+    """``TSDF.get_mesh`` on the card where a surface is real: the planted
+    room's GT ``tsdf_04`` and a uniform noise TSDF over the config's test
+    grid (seed 0), the worst case a badly trained model could predict.
+    Prints the faces, seconds, peak memory and PLY bytes of each."""
+    from cnrma_torch.geometry.tsdf import TSDF
+    from cnrma_torch.utils.ply import write_ply_mesh
+    room = TSDF.load(os.path.join(data, "atlas_tsdf", "scene0000_00",
+                                  "tsdf_04.npz"))
+    noise = TSDF(0.04, np.zeros((1, 3), np.float32),
+                 np.random.RandomState(0).uniform(-1, 1, dim)
+                 .astype(np.float32))
+    for name, tsdf in (("room tsdf_04", room), ("noise", noise)):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        verts, faces, normals = tsdf.get_mesh(dev)
+        mesh_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        ply = os.path.join(root, "mesh.ply")
+        t0 = time.perf_counter()
+        write_ply_mesh(ply, verts, faces, vertex_normals=normals)
+        ply_s = time.perf_counter() - t0
+        ply_bytes = os.path.getsize(ply)
+        os.remove(ply)
+        log(f"[cli] mesh of the {name} TSDF {tsdf.tsdf_vol.shape}: "
+            f"{len(faces)} faces, {len(verts)} vertices in {mesh_s:.3f} s, "
+            f"peak memory {peak / 2 ** 30:.2f} GiB; PLY {ply_bytes} bytes "
+            f"written in {ply_s:.3f} s")
+        if len(faces) == 0 or not np.isfinite(verts).all() \
+                or int(faces.max()) >= len(verts):
+            raise AssertionError(f"mesh of the {name} TSDF is empty or "
+                                 f"malformed")
+
+
 def dot_integer_check(dev) -> None:
     """The dot kernel at the probe's 128x256x128 on random integers in
     [-4, 4] (seed 0): every product and sum is exact in fp32, so it must
@@ -728,6 +934,7 @@ def main() -> None:
     phase_surface(dev, model, batch)
     del model, batch
     phase_reference(dev)
+    phase_test_cli(dev)
     probes, probe_calls = phase_probes(dev)
     kernels = [
         dict(name="volume_accum", route="cuda",

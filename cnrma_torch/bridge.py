@@ -17,6 +17,10 @@ The port's modules carry the flax module names, so a flax path
 
 ``from_flax`` raises on a leaf that no port parameter takes and, given the
 target module, on a port parameter or buffer that no leaf fills.
+``read_flax_npz`` reads a variable tree saved as an ``.npz`` of its
+flattened leaves (keys ``params/tower2d/.../kernel``,
+``batch_stats/.../mean``), the checkpoint format the test CLI takes from
+the JAX package.
 """
 
 from __future__ import annotations
@@ -53,6 +57,20 @@ def _convert(collection: str, path, value: np.ndarray):
     else:
         name, arr = leaf, value
     return ".".join(mods + [name]), arr
+
+
+def read_flax_npz(path: str) -> Dict[str, Any]:
+    """An ``.npz`` of flattened flax leaves (``/``-joined paths) -> the
+    nested variable tree."""
+    tree: Dict[str, Any] = {}
+    with np.load(path) as data:
+        for key in data.files:
+            *mods, leaf = key.split("/")
+            node = tree
+            for m in mods:
+                node = node.setdefault(m, {})
+            node[leaf] = data[key]
+    return tree
 
 
 def from_flax(variables: Mapping[str, Any],

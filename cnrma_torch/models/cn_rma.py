@@ -20,6 +20,7 @@ from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from cnrma_torch.capacity import report as report_capacity
 from cnrma_torch.models.fcaf3d import DetectionCapacities, FCAF3DDetector
 from cnrma_torch.models.resnet_fpn import ResNetFPN2D
 from cnrma_torch.models.tsdf_head import TSDFHead
@@ -45,6 +46,8 @@ def _normalize_subsample(flat: RayMarchPoints, max_points: int,
     ``generator``), invalid ones last."""
     n_flat = flat.weight.shape[0]
     valid = flat.weight > 0
+    report_capacity("scene points before max_points subsample",
+                    valid.sum, max_points)
     n_valid = valid.float().sum()
     mean_w = flat.weight.sum() / torch.clamp(n_valid, min=1.0)
     weights = flat.weight / torch.clamp(mean_w, min=1e-12)

@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from cnrma_torch.capacity import report as report_capacity
 from cnrma_torch.ops import _build
 
 RAY_MARCH = _build.LaunchCounter()
@@ -382,6 +383,9 @@ def _points(weight: torch.Tensor, sample: torch.Tensor, o: torch.Tensor,
     [V, capacity] fields."""
     V, HW, k_max = weight.shape
     w_flat = weight.reshape(V, HW * k_max)
+    if capacity < HW * k_max:
+        report_capacity("ray-march kept samples/view",
+                        lambda: (w_flat > 0).sum(-1), capacity)
     sel = _select_topk(w_flat, capacity)                # [V, cap]
     ok = sel >= 0
     sel_c = torch.where(ok, sel, 0)

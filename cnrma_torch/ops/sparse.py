@@ -23,8 +23,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from cnrma_torch.capacity import report as report_capacity
 from cnrma_torch.ops.voxelize import (
-    SENTINEL_KEY, VoxelGrid, lookup, sort_by_key, unique_sorted)
+    SENTINEL_KEY, VoxelGrid, count_unique, lookup, sort_by_key,
+    unique_sorted)
 
 
 @dataclass(frozen=True)
@@ -65,6 +67,8 @@ def voxelize_points(points: torch.Tensor, feats: torch.Tensor,
     coords = torch.floor(points / cell).to(torch.int32)
     keys = torch.where(point_valid, grid.pack(coords), SENTINEL_KEY)
     keys_sorted, feats_s = sort_by_key(keys, feats)
+    report_capacity("voxelize(stride 1)", lambda: count_unique(keys_sorted),
+                    capacity)
     out_keys, run_id = unique_sorted(keys_sorted, capacity)
     c = feats.shape[-1]
     sums = feats.new_zeros((capacity + 1, c), dtype=torch.float32)
@@ -144,8 +148,11 @@ def downsample_coords(st: SparseTensor, factor: int, capacity: int
     Returns (keys [capacity] sorted, coords [capacity, 3])."""
     new_stride = st.stride * factor
     q = torch.div(st.coords, new_stride, rounding_mode="floor") * new_stride
-    qkeys = torch.where(st.valid, st.grid.pack(q), SENTINEL_KEY)
-    out_keys, _ = unique_sorted(torch.sort(qkeys)[0], capacity)
+    qkeys = torch.sort(torch.where(st.valid, st.grid.pack(q),
+                                   SENTINEL_KEY))[0]
+    report_capacity(f"dedup(stride {new_stride})",
+                    lambda: count_unique(qkeys), capacity)
+    out_keys, _ = unique_sorted(qkeys, capacity)
     return out_keys, st.grid.unpack(out_keys)
 
 

@@ -73,6 +73,13 @@ def unique_sorted(keys_sorted: torch.Tensor, capacity: int
     return out_keys[:capacity], run_id
 
 
+def count_unique(keys_sorted: torch.Tensor) -> torch.Tensor:
+    """Number of distinct non-sentinel keys in a sorted key array (0-dim):
+    the fill of a ``unique_sorted`` buffer before it clips."""
+    prev = torch.cat([keys_sorted.new_full((1,), -1), keys_sorted[:-1]])
+    return ((keys_sorted != SENTINEL_KEY) & (keys_sorted != prev)).sum()
+
+
 def lookup(keys_sorted: torch.Tensor, queries: torch.Tensor
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Search ``queries`` in a sorted key array.  Returns (index clipped to
