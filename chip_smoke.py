@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain torch version at the full ScanNet shapes,
-drives the CN-RMA test-mode forward once at full width, and checks a small
-input against the CPU reference path.
+drives the CN-RMA test-mode forward, the test CLI and the train CLI at full
+width, and checks small inputs against the CPU reference path.
 
     python3 chip_smoke.py
 
@@ -42,6 +42,27 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
      and on planted dumps equal to the GT (mAP@0.25 and mAP@0.50 exactly
      1.0; shifted up by dz/2, mAP@0.50 exactly 0); one scene again with
      ``CNRMA_CAPACITY_DEBUG=1``, its capacity lines printed.
+  6c. volume backward: K1b against its plain version at the training shape
+     (40 views of [120, 160, 32], a 192x192x80 grid), bf16 and fp32,
+     within 1e-5 of the largest gradient (its fp32 atomics sum in an order
+     that changes from run to run; bf16 one bf16 ulp more), timed beside
+     the plain version and ``index_add_``.
+  6d. train reference: a tiny fp32 training step on the GPU against the
+     same step on the CPU (same parameters, batch, draws and kept points):
+     losses, gradients (the 2D tower's as groups and, by cosine, each
+     leaf) and running statistics within their stated limits; then three
+     planted faults in the GPU step (K1b's output losing a view, the
+     trunk's norms on running statistics, one tower leaf's gradient lost),
+     each of which must break a limit of the tower's.
+  6e. train CLI: ``python -m cnrma_torch.tools.train`` on two synthetic
+     ScanNet scenes (40 frames of 1296x968 JPEG) at the config's full
+     training width (40 views of 480x640, the 192x192x80 grid, fp32) for 3
+     steps from default-initialised weights: each loss, the gradient norm,
+     the step's and the reader wait's seconds, the peak memory and the
+     step's stage times (CUDA events marked inside the train loop) per
+     step, all finite; K1, K1b and K2 once a step; one backward of the
+     reconstruction losses alone must reach the 2D tower; the test CLI on
+     one scene from the checkpoint written.
   7. probes: first the dot kernel on random integers in [-4, 4] at the
      probe's 128x256x128 (exact in fp32, tolerance 0; the probe's own
      all-ones input cannot see a permuted row or column); then the three
@@ -816,6 +837,434 @@ def _mesh_at_full_width(dev, root: str, data: str, dim) -> None:
                                  f"malformed")
 
 
+TRAIN_FULL = dict(voxel_dim=(192, 192, 80), voxel_size=0.04, views=40,
+                  h=480, w=640)
+K1B_TOL = 1e-5      # of the largest gradient: fp32 atomics, varying order
+
+
+def volume_bwd_args(dev, dtype) -> tuple:
+    """K1b's arguments at the training shape: 40 views of [120, 160, 32]
+    features (seed 0) on a ring around the 192x192x80 grid, one view left
+    out; K1's count for them; a gaussian cotangent (seed 1) in ``dtype``."""
+    from cnrma_torch.ops import backproject as bp
+    from cnrma_torch.synthetic import ring_projections
+    c = TRAIN_FULL
+    v, h, w = c["views"], c["h"] // 4, c["w"] // 4
+    proj = torch.from_numpy(ring_projections(
+        v, c["h"], c["w"], c["voxel_dim"], c["voxel_size"])).to(dev)
+    proj[:, :2, :] /= 4
+    feats = torch.rand(v, h, w, 32, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev).to(dtype)
+    view_valid = torch.ones(v, dtype=torch.bool, device=dev)
+    view_valid[v // 2] = False
+    origin = (0.0, 0.0, 0.0)
+    _, cnt, _ = bp.volume_accum_cuda(proj, feats, view_valid, c["voxel_dim"],
+                                     c["voxel_size"], origin)
+    g = torch.randn(*c["voxel_dim"], 32, generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev).to(dtype)
+    return (proj, g, cnt, view_valid, (h, w), c["voxel_dim"],
+            c["voxel_size"], origin, dtype)
+
+
+def volume_bwd_work(args) -> tuple:
+    """(bytes, fp32 operations, (voxel, view) pairs) of the volume backward
+    on these inputs.  Bytes: the cotangent and the count read, the
+    projections and view flags, the gradient written once in the feature
+    dtype (the kernel's fp32 zeroing exists only for its atomics and is
+    not counted).  Operations: 6 per voxel (its centre), 21 per voxel
+    and valid view (the projection), 32 per observed voxel (the division by
+    its count), 32 per pair (the sums)."""
+    proj, g, cnt, ok, (h, w), dim, vs, origin, dtype = args
+    V, n, es = proj.shape[0], cnt.numel(), g.element_size()
+    pairs = float(cnt.sum())
+    nbytes = (n * 32 * es + 4 * n + proj.numel() * 4 + V
+              + V * h * w * 32 * es)
+    ops = (6.0 * n + 21.0 * n * int(ok.sum()) + 32.0 * int((cnt > 0).sum())
+           + 32.0 * pairs)
+    return nbytes, ops, pairs
+
+
+def index_add_library(args):
+    """The one PyTorch call that computes the volume backward:
+    ``Tensor.index_add_`` of every valid (voxel, view) pair's row
+    ``g / cnt`` into the zeroed [V * h * w, 32] at its pixel, the pairs'
+    pixel ids and rows made beforehand."""
+    from cnrma_torch.ops import backproject as bp
+    proj, g, cnt, ok, (h, w), dim, vs, origin, dtype = args
+    g_sum = bp._sum_cotangent(g, cnt)
+    dst, src = [], []
+    for v in range(proj.shape[0]):
+        flat, valid = bp.project_voxels(proj[v], dim, vs, origin, h, w)
+        idx = torch.nonzero(valid.reshape(-1) & ok[v]).squeeze(1)
+        dst.append(flat.reshape(-1)[idx] + v * h * w)
+        src.append(idx)
+    dst, rows = torch.cat(dst), g_sum[torch.cat(src)]
+    n_pix = proj.shape[0] * h * w
+    return lambda: torch.zeros(n_pix, 32, device=g.device).index_add_(
+        0, dst, rows)
+
+
+def phase_volume_backward(dev) -> dict:
+    """K1b against its plain version at the training shape, bf16 then fp32
+    (the training step's dtype, whose row is kept), timed beside the plain
+    version and, in fp32, beside ``index_add_``."""
+    from cnrma_torch.ops import backproject as bp
+    row = None
+    for dtype in (torch.bfloat16, torch.float32):
+        args = volume_bwd_args(dev, dtype)
+        got = bp.volume_accum_bwd_cuda(*args)
+        want = bp.volume_accum_bwd_plain(*args)
+        torch.cuda.synchronize()
+        scale = float(want.float().abs().max())
+        err = (got.float() - want.float()).abs()
+        tol = K1B_TOL * scale + (0.0 if dtype == torch.float32
+                                 else 2.0 ** -7 * want.float().abs())
+        tol_name = ("1e-5 of the largest gradient" if dtype == torch.float32
+                    else "1e-5 of the largest gradient + one bf16 ulp")
+        if got.dtype != dtype or scale == 0 or not bool((err <= tol).all()):
+            raise AssertionError(f"volume backward kernel: error "
+                                 f"{err.max().item()} beyond {tol_name} "
+                                 f"({dtype}, largest gradient {scale})")
+        ms = time_ms(lambda: bp.volume_accum_bwd_cuda(*args), dev)
+        plain_ms = time_ms(lambda: bp.volume_accum_bwd_plain(*args), dev,
+                           reps=3)
+        nbytes, ops, pairs = volume_bwd_work(args)
+        row = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+                   **bound(nbytes, ops), library_ms=None)
+        note = ""
+        if dtype == torch.float32:
+            library = index_add_library(args)
+            lib_err = float((library().reshape(got.shape) - want).abs().max())
+            row["library_ms"] = time_ms(library, dev)
+            note = (f", index_add_ {row['library_ms']:.4f} ms (max|err| "
+                    f"{lib_err:.3g})")
+            del library
+        log(f"[volume bwd] {str(dtype)[6:]}: max|err| {err.max().item():.3g}"
+            f" = {err.max().item() / scale:.3g} of the largest gradient "
+            f"{scale:.4g} (tol {tol_name}); (voxel, view) pairs {pairs:.0f}; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms{note}; bound "
+            f"{row['bound_ms']:.4f} ms by {row['bound_by']}")
+        del args, got, want, err, tol
+        torch.cuda.empty_cache()
+    return row
+
+
+def tiny_train_case():
+    """The tiny training step of ``tests/test_torch_train.py`` without
+    JAX: the tiny CNRMA at 1 cm detector voxels, ``synthesize_parameters``
+    (seed 1), two 64x64 views and a GT box twice (numpy seed 0), the
+    subsample's uniform draw and one augmentation draw fixed."""
+    from cnrma_torch.models import cn_rma as tcn
+    from cnrma_torch.models.fcaf3d import DetectionCapacities
+    from cnrma_torch.synthetic import synthesize_parameters
+    model = tcn.CNRMA(voxel_dim=(16, 16, 16), voxel_size=0.1, n_classes=3,
+                      ray_samples=24, rays_per_view_cap=512, max_points=1024,
+                      pts_threshold=500, assigner_limit=2, assigner_topk=4,
+                      nms_pre=16, voxel_size_fcaf3d=0.01,
+                      capacities=DetectionCapacities.tiny())
+    synthesize_parameters(model, 1)
+    rng = np.random.RandomState(0)
+    intr = np.array([[60.0, 0, 32], [0, 60.0, 32], [0, 0, 1]], np.float32)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = [0.8, 0.8, -0.4]
+    proj = (intr @ np.linalg.inv(pose)[:3]).astype(np.float32)
+    batch = {
+        "imgs": torch.from_numpy(rng.rand(1, 2, 64, 64, 3).astype(np.float32)
+                                 * 255),
+        "projection": torch.from_numpy(np.broadcast_to(proj, (1, 2, 3, 4))
+                                       .copy()),
+        "view_valid": torch.ones(1, 2, dtype=torch.bool),
+        "offset": torch.zeros(1, 3),
+        "gt_boxes": torch.tensor([[[0.8, 0.8, 0.8, 0.6, 0.6, 0.6, 0.0]] * 2]),
+        "gt_labels": torch.ones(1, 2, dtype=torch.int32),
+        "gt_valid": torch.ones(1, 2, dtype=torch.bool),
+        "tsdf_list": {f"tsdf_gt_{k}": torch.from_numpy(
+            rng.rand(1, n, n, n).astype(np.float32) * 2 - 1)
+            for k, n in (("010", 16), ("020", 8), ("040", 4))}}
+    draws = dict(
+        uniform=torch.from_numpy(rng.rand(1, 1024).astype(np.float32)),
+        aug_draws=[tcn.draw_feature_transform(
+            torch.Generator().manual_seed(1), "cpu")])
+    return ({k: v.clone() for k, v in model.state_dict().items()}, model,
+            batch, draws)
+
+
+def _step(model, batch, draws, plant=None):
+    """One training forward and backward; ``plant(model)`` runs after
+    ``model.train()``."""
+    from cnrma_torch.train.loop import total_loss
+    model.train()
+    if plant is not None:
+        plant(model)
+    losses = model.forward_train(batch, **draws)
+    total_loss(losses).backward()
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+             .detach().double().cpu() for n, p in model.named_parameters()}
+    stats = {n: b.detach().cpu().clone() for n, b in model.named_buffers()}
+    return {k: float(v.detach()) for k, v in losses.items()}, grads, stats
+
+
+# The tiny step's limits, GPU against CPU: losses (relative), every
+# gradient leaf past the 2D tower (of the leaf's largest magnitude), the
+# tower's three groups (cosine, relative L2 error), each tower leaf
+# (cosine), the running statistics (absolute).
+TRAIN_LIMITS = {"losses": 1e-4, "leaf": 5e-3, "group_cos": 0.999,
+                "group_err": 0.02, "leaf_cos": 0.99, "stats": 1e-5}
+TOWER_GROUPS = ("tower2d.resnet.", "tower2d.fpn.", "tower2d.fuse.")
+# the one-leaf fault's leaf: under 1% of the trunk's gradient by L2 norm
+ONE_TOWER_LEAF = "tower2d.resnet.res5_block2.conv3.norm.bias"
+
+
+def _cosine(a, b) -> float:
+    na, nb = float(a.norm()), float(b.norm())
+    if na == 0 or nb == 0:
+        return float(na == nb)
+    return float(a @ b) / (na * nb)
+
+
+def _train_readings(got, want) -> dict:
+    """The readings of ``TRAIN_LIMITS`` for the step ``got`` against
+    ``want`` ((losses, gradients, statistics) each), with the worst leaf
+    or group."""
+    (gl, gg, gs), (wl, wg, ws) = got, want
+    r = {"losses": max((abs(gl[k] - w) / abs(w), k)
+                       for k, w in wl.items() if w),
+         "leaf": max((float((gg[k] - wg[k]).abs().max()
+                            / wg[k].abs().max().clamp(min=1e-30)), k)
+                     for k in wg if not k.startswith("tower2d.")),
+         "leaf_cos": min((_cosine(gg[k].ravel(), wg[k].ravel()), k)
+                         for k in wg if k.startswith("tower2d.")),
+         "stats": max((float((gs[k].float() - ws[k].float()).abs().max()), k)
+                      for k in ws if ws[k].is_floating_point())}
+    groups = []
+    for name in TOWER_GROUPS:
+        keys = [k for k in wg if k.startswith(name)]
+        a = torch.cat([gg[k].ravel() for k in keys])
+        b = torch.cat([wg[k].ravel() for k in keys])
+        groups.append((_cosine(a, b), float((a - b).norm() / b.norm()),
+                       name[:-1]))
+    r["group_cos"] = min((c, n) for c, _, n in groups)
+    r["group_err"] = max((e, n) for _, e, n in groups)
+    r["groups"] = groups
+    return r
+
+
+def _train_failures(r) -> list:
+    return sorted(k for k, lim in TRAIN_LIMITS.items()
+                  if (r[k][0] < lim if k.endswith("cos") else r[k][0] > lim))
+
+
+def _fmt_readings(r) -> str:
+    return "; ".join(
+        [f"{k} {r[k][0]:{'.6f' if k.endswith('cos') else '.3g'}} "
+         f"({r[k][1]}; limit {lim})" for k, lim in TRAIN_LIMITS.items()]
+        + ["groups " + ", ".join(f"{n} cos {c:.6f} err {e:.3g}"
+                                 for c, e, n in r["groups"])])
+
+
+def _planted_faults():
+    """Faults the phase plants in the GPU step, each a (plant before the
+    forward, change of the gradients after it) pair: the volume's backward
+    dropping view 1's gradient (K1b still launches), the 2D trunk's
+    train-mode norms running on their running statistics, and one tower
+    leaf's gradient lost."""
+    from cnrma_torch.models import layers
+
+    def trunk_eval(model):
+        for m in model.tower2d.resnet.modules():
+            if isinstance(m, layers.BatchNorm):
+                m.eval()
+
+    def lose_leaf(grads):
+        grads[ONE_TOWER_LEAF].zero_()
+    return {"k1b_drops_view": (None, None),
+            "trunk_norms_eval": (trunk_eval, None),
+            "one_tower_leaf": (None, lose_leaf)}
+
+
+def phase_train_reference(dev) -> None:
+    """The tiny training step in fp32 on the GPU (kernels, K1b in the
+    backward) and on the CPU (plain versions), same parameters, batch,
+    draws and kept points (the CPU run's subsample given to the GPU run),
+    held at ``TRAIN_LIMITS``: the losses within 1e-4 relative, the running
+    statistics within 1e-5, every gradient leaf past the 2D tower within
+    5e-3 of the leaf's largest magnitude (cuDNN's 3D convolutions round
+    otherwise than the CPU's: the U-Net's leaves differ by up to 1.4e-3 of
+    theirs); the tower's leaves, whose training backward is chaotic in
+    fp32 (``tests/test_torch_train.py``), as three groups (R-50, FPN,
+    fuse: cosine at least 0.999, relative L2 error at most 0.02) and each
+    leaf at a cosine of at least 0.99.  Then the same step with each of
+    ``_planted_faults`` must break a limit of the tower's."""
+    from cnrma_torch.models import cn_rma as tcn
+    from cnrma_torch.ops import backproject as bp
+    state, model, batch, draws = tiny_train_case()
+    real, kept = tcn._normalize_subsample, {}
+
+    def spy(*args, **kw):
+        kept["points"] = real(*args, **kw)
+        return kept["points"]
+    gpu_batch = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                     if isinstance(v, dict) else v.to(dev))
+                 for k, v in batch.items()}
+    gpu_draws = dict(uniform=draws["uniform"].to(dev),
+                     aug_draws=[{k: v.to(dev) for k, v in d.items()}
+                                for d in draws["aug_draws"]])
+
+    def gpu_step(plant=None):
+        model.load_state_dict(state)
+        model.zero_grad(set_to_none=True)
+        return _step(model, gpu_batch, gpu_draws, plant)
+    tcn._normalize_subsample = spy
+    real_bwd = bp.volume_accum_bwd
+    try:
+        want = _step(model, batch, draws)
+        tcn._normalize_subsample = lambda *args, **kw: tuple(
+            t.to(dev) for t in kept["points"])
+        model.to(dev)
+        bp.VOLUME_ACCUM_BWD.launches = 0
+        got = gpu_step()
+        launches = bp.VOLUME_ACCUM_BWD.launches
+        faults = {}
+        for name, (plant, change) in _planted_faults().items():
+            if name == "k1b_drops_view":
+                def drop_view(*args):
+                    g = real_bwd(*args).clone()
+                    g[1] = 0
+                    return g
+                bp.volume_accum_bwd = drop_view
+            bad = gpu_step(plant)
+            bp.volume_accum_bwd = real_bwd
+            if change is not None:
+                change(bad[1])
+            faults[name] = _train_readings(bad, want)
+    finally:
+        tcn._normalize_subsample = real
+        bp.volume_accum_bwd = real_bwd
+    r = _train_readings(got, want)
+    log(f"[train reference] tiny fp32 step, GPU vs CPU: K1b launched "
+        f"{launches}; kept points {int(kept['points'][4].sum())}; "
+        + _fmt_readings(r))
+    tower = {"group_cos", "group_err", "leaf_cos"}
+    caught = {}
+    for name, fr in faults.items():
+        caught[name] = _train_failures(fr)
+        log(f"[train reference] planted fault {name}: breaks "
+            f"{caught[name]}; " + _fmt_readings(fr))
+    if launches != 1 or set(got[0]) != set(want[0]) or _train_failures(r):
+        raise AssertionError(f"the GPU training step disagrees with the "
+                             f"CPU: {_train_failures(r)}")
+    missed = [n for n, f in caught.items() if not tower & set(f)]
+    if missed:
+        raise AssertionError(f"the tower's limits pass planted faults: "
+                             f"{missed}")
+
+
+def phase_train_cli(dev) -> dict:
+    """The user's training loop on the card: ``python -m
+    cnrma_torch.tools.train configs/ray_marching_scannet.py --max-steps 3``
+    at the config's full training width (40 views of 480x640 from 1296x968
+    JPEG frames, the 192x192x80 grid, fp32) on two synthetic ScanNet scenes
+    written under ``build/``, from default-initialised weights
+    (``--load-from``); per step each loss, the gradient norm, the step's
+    and the reader wait's seconds, the peak memory and the stage times
+    (``timing.stage_marks`` in the train loop); K1, K1b and K2 once
+    a step; then one backward of the reconstruction losses alone, which
+    must reach the 2D tower (through K1b); then the test CLI on one scene
+    from the checkpoint the train CLI wrote.  Returns the launches."""
+    from cnrma_torch.core.builder import build_dataset, build_model
+    from cnrma_torch.core.config import Config
+    from cnrma_torch.data.loader import collate_scenes
+    from cnrma_torch.ops.backproject import VOLUME_ACCUM, VOLUME_ACCUM_BWD
+    from cnrma_torch.ops.ray_marching import RAY_MARCH
+    from cnrma_torch.synthetic import write_scannet
+    from cnrma_torch.tools import test as test_cli
+    from cnrma_torch.tools import train as train_cli
+    from cnrma_torch.train.loop import device_batch, step_generator
+    from cnrma_torch.train.state import read_checkpoint
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train_", dir="build")
+    try:
+        t0 = time.perf_counter()
+        data = os.path.join(root, "data")
+        ann = write_scannet(data, n_scenes=2, n_frames=40,
+                            ann_name="scannet_infos_train.pkl")
+        val = os.path.join(data, "scannet_infos_val.pkl")
+        shutil.copy(ann, val)
+        cfg = Config.fromfile(CLI_CONFIG)
+        torch.manual_seed(0)
+        init = os.path.join(root, "init.pt")
+        torch.save(build_model(cfg, mode="train").state_dict(), init)
+        log(f"[train cli] wrote 2 scenes (40 frames of 1296x968 JPEG, room "
+            f"TSDF and boxes) and a default-initialised checkpoint in "
+            f"{time.perf_counter() - t0:.1f} s")
+        opts = [f"data.train.data_root={data}", f"data.train.ann_file={ann}",
+                "log_config.interval=1"]
+        torch.cuda.synchronize()
+        for c in (VOLUME_ACCUM, VOLUME_ACCUM_BWD, RAY_MARCH):
+            c.launches = 0
+        t0 = time.perf_counter()
+        records, ckpt = train_cli.main(
+            [CLI_CONFIG, "--work-dir", os.path.join(root, "wd"),
+             "--load-from", init, "--max-steps", "3", "--cfg-options",
+             *opts])
+        wall = time.perf_counter() - t0
+        launches = {"volume_accum": VOLUME_ACCUM.launches,
+                    "volume_accum_bwd": VOLUME_ACCUM_BWD.launches,
+                    "ray_march": RAY_MARCH.launches}
+        log(f"[train cli] 3 steps in {wall:.2f} s; launches {launches}")
+        for r in records:
+            log(f"[train cli] step {r['step']}: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in r["log_vars"].items())
+                + f"; step {r['step_s']:.3f} s, read {r['load_s']:.3f} s, "
+                f"waited {r['wait_s']:.3f} s, peak memory "
+                f"{r['peak_gib']:.2f} GiB; stages (CUDA events, ms) "
+                + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
+                    r["stages_ms"].items(), key=lambda kv: -kv[1]))
+                + f", sum {sum(r['stages_ms'].values()):.1f}")
+        finite = all(np.isfinite(v) for r in records
+                     for v in r["log_vars"].values())
+        if len(records) != 3 or not finite:
+            raise AssertionError("the train CLI must take 3 steps with "
+                                 "finite losses and gradient norms")
+        if launches != {"volume_accum": 3, "volume_accum_bwd": 3,
+                        "ray_march": 3}:
+            raise AssertionError(f"each step must launch K1, K1b and K2 "
+                                 f"once: {launches}")
+        cfg.merge_from_options(dict(kv.split("=", 1) for kv in opts))
+        model = build_model(cfg, mode="train")
+        model.load_state_dict(read_checkpoint(ckpt)["model"])
+        model.to(dev)
+        batch = device_batch(collate_scenes(
+            [build_dataset(cfg, "train", seed=0)[0]]), dev)
+        losses = model.forward_train(batch, step_generator(0, 3, dev))
+        sum(v for k, v in losses.items() if k.startswith("tsdf_")).backward()
+        tower = [p.grad for p in model.tower2d.parameters()
+                 if p.grad is not None]
+        norm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in tower)))
+        log(f"[train cli] the reconstruction losses alone give the 2D tower "
+            f"a gradient of norm {norm:.4g} ({len(tower)} leaves)")
+        if not math.isfinite(norm) or norm <= 0:
+            raise AssertionError("no gradient reached the 2D tower from "
+                                 "the reconstruction losses")
+        del model, batch, losses, tower
+        torch.cuda.empty_cache()
+        save, middle = os.path.join(root, "res"), os.path.join(root, "mid")
+        recs = test_cli.main([CLI_CONFIG, ckpt, "--max-scenes", "1",
+                              "--save-path", save, "--middle-save-path",
+                              middle, "--cfg-options",
+                              f"data.test.data_root={data}",
+                              f"data.test.ann_file={val}"])
+        n = _check_scene_files(save, middle, recs[0]["scene"],
+                               cfg.model.voxel_dim_test)
+        log(f"[train cli] the test CLI ran {recs[0]['scene']} from "
+            f"{os.path.basename(ckpt)}: forward {recs[0]['forward_s']:.3f} "
+            f"s, {n['raw_boxes']} raw boxes, {n['middle_points']} points, "
+            f"files well formed")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def dot_integer_check(dev) -> None:
     """The dot kernel at the probe's 128x256x128 on random integers in
     [-4, 4] (seed 0): every product and sum is exact in fp32, so it must
@@ -909,9 +1358,13 @@ def phase_device_time(dev, rows, probe_calls) -> None:
     del vol32
     vol = volume_args(dev, torch.bfloat16)
     rays = ray_args(dev)
+    bwd = volume_bwd_args(dev, torch.float32)
     calls = [("volume_accum_kernel", lambda: bp.volume_accum_cuda(*vol),
               None),
              ("ray_march_kernel", lambda: rm.march_rays_cuda(*rays), None),
+             ("volume_accum_bwd_kernel",
+              lambda: bp.volume_accum_bwd_cuda(*bwd),
+              index_add_library(bwd)),
              *probe_calls]
     for row, (symbol, kernel, library) in zip(rows, calls):
         row["device_ms"] = device_ms(kernel, symbol)
@@ -935,6 +1388,9 @@ def main() -> None:
     del model, batch
     phase_reference(dev)
     phase_test_cli(dev)
+    bwd = phase_volume_backward(dev)
+    phase_train_reference(dev)
+    train_launches = phase_train_cli(dev)
     probes, probe_calls = phase_probes(dev)
     kernels = [
         dict(name="volume_accum", route="cuda",
@@ -945,6 +1401,10 @@ def main() -> None:
              source="cnrma_torch/csrc/ray_march.cu",
              replaces="cnrma_tpu/ops/pallas_ray.py:108",
              launches=launches["ray_march"], **ray, library_ms=None),
+        dict(name="volume_accum_bwd", route="cuda",
+             source="cnrma_torch/csrc/volume_accum_bwd.cu",
+             replaces="cnrma_tpu/ops/backproject.py:283",
+             launches=train_launches["volume_accum_bwd"], **bwd),
         *probes,
     ]
     phase_device_time(dev, kernels, probe_calls)

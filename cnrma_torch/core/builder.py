@@ -1,13 +1,14 @@
-"""Build the port's test-mode model and dataset from reference-style config
-dicts (port of ``cnrma_tpu/core/builder.py:33-159``).
+"""Build the port's model and dataset from reference-style config dicts
+(port of ``cnrma_tpu/core/builder.py:33-159``).
 
 The config surface is the JAX package's (``configs/ray_marching_scannet.py``:
 nested backbone2d / feature_2d / detection_head blocks with the reference's
 knob names).  ``cnrma_kwargs`` reads the knobs that parameterize the torch
-``CNRMA``, with the JAX builder's defaults; ``build_model`` builds it.  The
-port has the test-mode ScanNet detector only: the other model types and
-datasets raise ``NotImplementedError`` naming the ROADMAP item that brings
-them.
+``CNRMA``, with the JAX builder's defaults; ``build_model`` builds it, on
+the training grid for ``mode="train"`` and the test grid for
+``mode="test"``.  The port has the ScanNet detector only: the other model
+types and datasets raise ``NotImplementedError`` naming the ROADMAP item
+that brings them.
 """
 
 from __future__ import annotations
@@ -46,11 +47,9 @@ def _build_capacities(caps_cfg) -> DetectionCapacities:
 def cnrma_kwargs(cfg, mode: str = "test") -> Dict[str, Any]:
     """The torch ``CNRMA``'s constructor arguments from a config (a full
     Config or a dict with a ``model`` key), read as the JAX builder reads
-    them.  ``mode`` must be ``"test"``: training comes with ROADMAP queue 1,
-    item 8."""
-    if mode != "test":
-        raise NotImplementedError(
-            "mode 'train': the training path is ROADMAP queue 1, item 8")
+    them; ``mode`` ("train" or "test") picks the voxel grid."""
+    if mode not in ("train", "test"):
+        raise ValueError(f"mode must be 'train' or 'test', got {mode!r}")
     m = cfg["model"] if "model" in cfg.keys() else cfg
     model_type = m.get("type", "RayMarching")
     if model_type in _LATER:
@@ -67,13 +66,19 @@ def cnrma_kwargs(cfg, mode: str = "test") -> Dict[str, Any]:
     if m.get("ray_marching_type", "neus") != "neus":
         raise NotImplementedError(
             "ray_marching_type 'depth' is ROADMAP queue 1, item 9")
+    if m.get("use_batchnorm_train") is False:
+        # as the JAX builder: per-frame batch statistics are not
+        # implemented, and the reference always trains the views jointly
+        raise ValueError("use_batchnorm_train=False (per-frame batch "
+                         "statistics in training) is not implemented")
     # Ignored: the TPU knobs of the JAX volume and sparse paths (bp_tile,
     # bp_tile_frac, bp_rect_h, bp_rect_w, bp_rect_frac, bp_overflow_frac,
     # sparse_lut_budget) have no counterpart in the port's K1 and kernel
-    # maps, and the training knobs (losses, assigner, feature transform)
-    # come with the training path.
+    # maps.
+    assigner = head.get("assigner", {}) or {}
     return dict(
-        voxel_dim=tuple(m["voxel_dim_test"]),
+        voxel_dim=tuple(m["voxel_dim_train" if mode == "train"
+                          else "voxel_dim_test"]),
         voxel_size=m.get("voxel_size", 0.04),
         n_scales=m.get("n_scales", 3),
         origin=tuple(m.get("origin", (0, 0, 0))),
@@ -95,15 +100,22 @@ def cnrma_kwargs(cfg, mode: str = "test") -> Dict[str, Any]:
         n_reg_outs=head.get("n_reg_outs", 6),
         voxel_size_fcaf3d=m.get("voxel_size_fcaf3d", 0.01),
         pts_threshold=head.get("pts_threshold", 200000),
+        assigner_limit=assigner.get("limit", 27),
+        assigner_topk=assigner.get("topk", 18),
         nms_pre=test_cfg.get("nms_pre", 1000),
         capacities=_build_capacities(m.get("capacities")),
+        loss_weight_recon=m.get("loss_weight_recon", 1.0),
+        loss_weight_detection=m.get("loss_weight_detection", 1.0),
+        use_feature_transform=m.get("use_feature_transform", True),
+        feature_transform=dict(m.get("feature_transform") or {}),
         compute_dtype=getattr(torch, m.get("compute_dtype", "float32")),
     )
 
 
 def build_model(cfg, mode: str = "test") -> CNRMA:
-    """The torch ``CNRMA`` of a config, in eval mode, on the CPU."""
-    return CNRMA(**cnrma_kwargs(cfg, mode)).eval()
+    """The torch ``CNRMA`` of a config on the CPU, in training mode for
+    ``mode="train"`` and eval mode for ``mode="test"``."""
+    return CNRMA(**cnrma_kwargs(cfg, mode)).train(mode == "train")
 
 
 def build_dataset(cfg, data_key: str = "test", **overrides):

@@ -1,12 +1,20 @@
-"""CN-RMA combined detector, test-mode forward: 2D tower -> volume -> TSDF
--> NeuS ray marching -> sparse FCAF3D detection -> per-level top-k boxes.
+"""CN-RMA combined detector: 2D tower -> volume -> TSDF -> NeuS ray
+marching -> sparse FCAF3D detection; per-level top-k boxes in the test
+forward, the joint losses in the training forward.
 
-Port of ``cnrma_tpu/models/cn_rma.py`` (``CNRMA.__call__`` with
-``train=False``, ``_normalize_subsample``, ``_gather_point_feats``).  The
-per-view buffers, the subsample to ``max_points`` and the detector
-capacities are the JAX package's fixed shapes, so both packages keep the
-same points; the one random draw (the subsample order) comes from a
-``torch.Generator`` or, in the parity tests, from the caller.
+Port of ``cnrma_tpu/models/cn_rma.py`` (``CNRMA.__call__``,
+``feature_transform_aug``, ``_rotate_boxes``, ``_normalize_subsample``,
+``_gather_point_feats``).  The per-view buffers, the subsample to
+``max_points`` and the detector capacities are the JAX package's fixed
+shapes, so both packages keep the same points.  The random draws (the
+subsample order; in training the augmentation's flips, angle, scale and
+translation) come from a ``torch.Generator`` or, in the parity tests,
+from the caller.
+
+Gradients flow as in the JAX package: the TSDF entering the ray march is
+detached (the reference marches under ``no_grad``), the gathered 2D
+features are not, so the detection loss trains the 2D tower through the
+points but not the TSDF head.
 
 Batch layout (as in the JAX package): imgs [B, V, H, W, 3] raw RGB,
 projection [B, V, 3, 4] full-resolution, view_valid [B, V] bool,
@@ -15,6 +23,7 @@ offset [B, 3].
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -23,11 +32,12 @@ from torch import nn
 from cnrma_torch.capacity import report as report_capacity
 from cnrma_torch.models.fcaf3d import DetectionCapacities, FCAF3DDetector
 from cnrma_torch.models.resnet_fpn import ResNetFPN2D
-from cnrma_torch.models.tsdf_head import TSDFHead
+from cnrma_torch.models.tsdf_head import TSDFHead, tsdf_losses
 from cnrma_torch.models.unet3d import UNet3D
 from cnrma_torch.ops.backproject import accumulate_views
 from cnrma_torch.ops.ray_marching import (
     RayMarchPoints, build_occupancy, ray_march_scene)
+from cnrma_torch.timing import mark
 
 
 class RayPoints(NamedTuple):
@@ -35,6 +45,96 @@ class RayPoints(NamedTuple):
     xyz: torch.Tensor       # [B, P, 3] world coords (offset applied)
     feats: torch.Tensor     # [B, P, C] weight-scaled features
     valid: torch.Tensor     # [B, P]
+
+
+FEATURE_TRANSFORM = dict(flip_ratio_horizontal=0.5, flip_ratio_vertical=0.5,
+                         rot_range=(-0.087266, 0.087266),
+                         scale_ratio_range=(0.9, 1.1),
+                         translation_std=(0.1, 0.1, 0.1))
+
+
+def draw_feature_transform(generator: Optional[torch.Generator],
+                           device, flip_ratio_horizontal: float = 0.5,
+                           flip_ratio_vertical: float = 0.5,
+                           rot_range=(-0.087266, 0.087266),
+                           scale_ratio_range=(0.9, 1.1),
+                           translation_std=(0.1, 0.1, 0.1)
+                           ) -> Dict[str, torch.Tensor]:
+    """One scene's augmentation draws from ``generator``, as tensors on
+    ``device``: ``flip_h`` and ``flip_v`` (bool), ``angle``, ``scale`` and
+    ``trans`` [3] (gaussian times ``translation_std``)."""
+    u = torch.rand(4, generator=generator, device=device)
+    trans = torch.randn(3, generator=generator, device=device)
+    lo, hi = rot_range
+    s_lo, s_hi = scale_ratio_range
+    return {"flip_h": u[0] < flip_ratio_horizontal,
+            "flip_v": u[1] < flip_ratio_vertical,
+            "angle": lo + (hi - lo) * u[2],
+            "scale": s_lo + (s_hi - s_lo) * u[3],
+            "trans": trans * torch.tensor(translation_std,
+                                          dtype=torch.float32,
+                                          device=device)}
+
+
+def _rotate_boxes(boxes: torch.Tensor, angle: torch.Tensor,
+                  with_yaw: bool) -> torch.Tensor:
+    """Rotate gravity-center boxes [..., 7] about +z.  Without yaw the xy
+    sizes become those of the rotated box's axis-aligned enclosure
+    (mmdet3d depth boxes, ``TransformFeaturesBBoxes``)."""
+    c, s = torch.cos(angle), torch.sin(angle)
+    x = boxes[..., 0] * c - boxes[..., 1] * s
+    y = boxes[..., 0] * s + boxes[..., 1] * c
+    if with_yaw:
+        dims = boxes[..., 3:6]
+        yaw = boxes[..., 6] + angle
+    else:
+        w = torch.abs(boxes[..., 3] * c) + torch.abs(boxes[..., 4] * s)
+        l = torch.abs(boxes[..., 3] * s) + torch.abs(boxes[..., 4] * c)
+        dims = torch.stack([w, l, boxes[..., 5]], dim=-1)
+        yaw = boxes[..., 6]
+    return torch.cat([torch.stack([x, y, boxes[..., 2]], -1), dims,
+                      yaw[..., None]], dim=-1)
+
+
+def feature_transform_aug(points: torch.Tensor, boxes: torch.Tensor,
+                          with_yaw: bool, draws: Dict[str, torch.Tensor]
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Train-time augmentation of one scene's points [P, 3] and GT boxes
+    [M, 7], jointly (reference ``TransformFeaturesBBoxes``,
+    ``fcaf3d_transforms.py:14-146``): horizontal and vertical flips, a
+    small rotation about z, a global scale and a translation, with the
+    ``draws`` of ``draw_feature_transform``."""
+    one = torch.ones((), device=points.device)
+    do_h, do_v = draws["flip_h"], draws["flip_v"]
+    pts = points * torch.stack([torch.where(do_h, -one, one), one, one])
+    byaw = boxes[..., 6]
+    if with_yaw:
+        byaw = torch.where(do_h, math.pi - byaw, byaw)
+    boxes = torch.cat([torch.where(do_h, -boxes[..., :1], boxes[..., :1]),
+                       boxes[..., 1:6], byaw[..., None]], dim=-1)
+
+    pts = pts * torch.stack([one, torch.where(do_v, -one, one), one])
+    byaw = boxes[..., 6]
+    if with_yaw:
+        byaw = torch.where(do_v, -byaw, byaw)
+    boxes = torch.cat([boxes[..., :1],
+                       torch.where(do_v, -boxes[..., 1:2], boxes[..., 1:2]),
+                       boxes[..., 2:6], byaw[..., None]], dim=-1)
+
+    angle = draws["angle"]
+    c, s = torch.cos(angle), torch.sin(angle)
+    px = pts[..., 0] * c - pts[..., 1] * s
+    py = pts[..., 0] * s + pts[..., 1] * c
+    pts = torch.stack([px, py, pts[..., 2]], dim=-1)
+    boxes = _rotate_boxes(boxes, angle, with_yaw)
+
+    scale = draws["scale"]
+    pts = pts * scale
+    boxes = torch.cat([boxes[..., :6] * scale, boxes[..., 6:]], dim=-1)
+
+    trans = draws["trans"]
+    return pts + trans, torch.cat([boxes[..., :3] + trans, boxes[..., 3:]],
+                                  dim=-1)
 
 
 def _normalize_subsample(flat: RayMarchPoints, max_points: int,
@@ -68,12 +168,13 @@ def _gather_point_feats(f_b: torch.Tensor, uv_b: torch.Tensor,
     vi = view_b.long().clamp(0, v - 1)
     flat = ((vi * h + uv_b[:, 1].long().clamp(0, h - 1)) * w
             + uv_b[:, 0].long().clamp(0, w - 1))
-    g = f_b.reshape(v * h * w, c)[flat]
+    g = f_b.reshape(v * h * w, c).index_select(0, flat)
     return torch.where(valid_b[:, None], g, 0.0)
 
 
 class CNRMA(nn.Module):
-    """The combined detector (reference ``RayMarching``), test mode."""
+    """The combined detector (reference ``RayMarching``): ``forward`` is the
+    test forward, ``forward_train`` the training forward's losses."""
 
     def __init__(self, voxel_dim: Tuple[int, int, int] = (192, 192, 80),
                  voxel_size: float = 0.04, n_scales: int = 3,
@@ -87,10 +188,20 @@ class CNRMA(nn.Module):
                  ray_skip_coarse_step: int = 8,
                  bp_accum_dtype: str = "float32", n_classes: int = 18,
                  n_reg_outs: int = 6, voxel_size_fcaf3d: float = 0.01,
-                 pts_threshold: int = 200000, nms_pre: int = 1000,
+                 pts_threshold: int = 200000, assigner_limit: int = 27,
+                 assigner_topk: int = 18, nms_pre: int = 1000,
                  capacities: DetectionCapacities = DetectionCapacities(),
+                 loss_weight_recon: float = 1.0,
+                 loss_weight_detection: float = 1.0,
+                 use_feature_transform: bool = True,
+                 feature_transform: Optional[Dict[str, Any]] = None,
                  compute_dtype: Any = torch.float32):
         super().__init__()
+        self.loss_weight_recon = loss_weight_recon
+        self.loss_weight_detection = loss_weight_detection
+        self.use_feature_transform = use_feature_transform
+        self.feature_transform = {**FEATURE_TRANSFORM,
+                                  **(feature_transform or {})}
         self.voxel_dim = tuple(voxel_dim)
         self.voxel_size = voxel_size
         self.origin = tuple(float(o) for o in origin)
@@ -113,7 +224,8 @@ class CNRMA(nn.Module):
         self.detector = FCAF3DDetector(
             in_channels=feature_dim, n_classes=n_classes,
             n_reg_outs=n_reg_outs, voxel_size=voxel_size_fcaf3d,
-            pts_threshold=pts_threshold, nms_pre=nms_pre,
+            pts_threshold=pts_threshold, assigner_limit=assigner_limit,
+            assigner_topk=assigner_topk, nms_pre=nms_pre,
             capacities=capacities, compute_dtype=compute_dtype)
 
     # ------------------------------------------------------------------
@@ -218,3 +330,59 @@ class CNRMA(nn.Module):
                 "points": RayPoints(xyz=xyz, feats=pts.feats,
                                     valid=pts.valid),
                 "bboxes": bboxes, "scores": scores, "bbox_valid": bvalid}
+
+    def forward_train(self, batch: Dict[str, Any],
+                      generator: Optional[torch.Generator] = None,
+                      uniform: Optional[torch.Tensor] = None,
+                      aug_draws: Optional[Sequence[Dict[str, torch.Tensor]]]
+                      = None) -> Dict[str, torch.Tensor]:
+        """The training forward (``CNRMA.__call__`` with ``train=True``):
+        the loss dict ``tsdf_loss_<key>`` (times ``loss_weight_recon``),
+        ``loss_centerness``, ``loss_bbox`` and ``loss_cls`` (times
+        ``loss_weight_detection``).  The norms run as the modules' mode
+        says (``train()`` for batch statistics).  ``batch`` also holds
+        ``tsdf_list`` ({``tsdf_gt_<key>``: [B, X_i, Y_i, Z_i]}) and the GT
+        ``gt_boxes`` [B, M, 7], ``gt_labels`` and ``gt_valid`` [B, M].
+        The draws come from ``generator`` (first the subsample's, then per
+        scene the augmentation's) unless ``uniform`` and ``aug_draws``
+        (one ``draw_feature_transform`` dict a scene) give them."""
+        imgs = batch["imgs"]
+        view_valid = batch.get("view_valid")
+        if view_valid is None:
+            view_valid = torch.ones(imgs.shape[:2], dtype=torch.bool,
+                                    device=imgs.device)
+        feats = self.extract_2d(imgs)
+        mark("tower")
+        volume, _ = self.build_volume(feats, batch["projection"], view_valid)
+        mark("volume")
+        tsdf = self.reconstruct(volume)
+        mark("unet_head")
+        keys = self.tsdf_head.keys
+        losses = {k: v * self.loss_weight_recon for k, v in
+                  tsdf_losses(tsdf, batch["tsdf_list"], keys).items()}
+        mark("tsdf_loss")
+        pts = self.ray_march(feats, batch["projection"], view_valid,
+                             tsdf[f"scene_tsdf_{keys[-1]}"].detach(),
+                             generator, uniform)
+        mark("march")
+        xyz = pts.xyz + batch["offset"][:, None, :]
+        gt_boxes = batch["gt_boxes"]
+        if self.use_feature_transform:
+            scenes = []
+            for b in range(xyz.shape[0]):
+                draws = (aug_draws[b] if aug_draws is not None else
+                         draw_feature_transform(generator, xyz.device,
+                                                **self.feature_transform))
+                scenes.append(feature_transform_aug(xyz[b], gt_boxes[b],
+                                                    False, draws))
+            xyz = torch.stack([p for p, _ in scenes])
+            gt_boxes = torch.stack([bx for _, bx in scenes])
+        mark("augment")
+        level_outs = self.detector(xyz, pts.feats, pts.valid)
+        mark("detector")
+        det = self.detector.loss(level_outs, gt_boxes, batch["gt_labels"],
+                                 batch["gt_valid"])
+        mark("det_loss")
+        losses.update({k: v * self.loss_weight_detection
+                       for k, v in det.items()})
+        return losses

@@ -1,26 +1,30 @@
-"""FCAF3D sparse detection network, test-mode forward: backbone, neck,
-anchor-free head and box decoding.
+"""FCAF3D sparse detection network: backbone, neck, anchor-free head, box
+decoding and the loss.
 
-Port of ``cnrma_tpu/models/fcaf3d.py:42-302,304-355,452-477`` on the
-fixed-capacity sparse tensors of ``cnrma_torch/ops/sparse.py``.  In the
-test-mode forward every norm is per row (batch norm with running
-statistics) or per scene (the stem's instance norm), so the detector runs
-scene by scene and stacks the per-level outputs; capacities are the JAX
-package's ``DetectionCapacities``.  The loss and the assigner come with the
-training path.
+Port of ``cnrma_tpu/models/fcaf3d.py`` on the fixed-capacity sparse
+tensors of ``cnrma_torch/ops/sparse.py``; capacities are the JAX package's
+``DetectionCapacities``.  The detector runs scene by scene and stacks the
+per-level outputs.  In eval mode every norm is per row (batch norm with
+running statistics) or per scene (the stem's instance norm), so that is
+exact for any batch.  In training the batch norms take their statistics
+over the scene's rows, so a training batch holds one scene: the JAX
+package's statistics over all scenes of a batch come with multi-scene
+steps (data parallel, one scene a card).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cnrma_torch.models.assigner import fcaf3d_assign
 from cnrma_torch.models.layers import MaskedBatchNorm, MaskedInstanceNorm
 from cnrma_torch.ops import sparse as sp
+from cnrma_torch.ops.losses import bce_loss, iou3d_loss, sigmoid_focal_loss
 
 
 class DetectionCapacities(NamedTuple):
@@ -217,7 +221,7 @@ class FCAF3DHeadNet(nn.Module):
         bbox_pred = torch.cat([reg_dist, reg[:, 6:]], dim=-1)
         points = st.coords.float() * self.voxel_size
         return (LevelOut(centerness, bbox_pred, cls_scores, points, st.valid),
-                cls_scores.max(dim=-1).values)
+                cls_scores.detach().max(dim=-1).values)
 
 
 def decode_bbox(points: torch.Tensor, bbox_pred: torch.Tensor,
@@ -254,15 +258,19 @@ def decode_bbox(points: torch.Tensor, bbox_pred: torch.Tensor,
 
 
 class FCAF3DDetector(nn.Module):
-    """Backbone + head, test-mode forward and ``get_bboxes``."""
+    """Backbone + head: the forward, ``loss`` and ``get_bboxes``."""
 
     def __init__(self, in_channels: int = 32, n_classes: int = 18,
                  n_reg_outs: int = 6, voxel_size: float = 0.01,
                  depth: int = 34, pts_threshold: int = 200000,
+                 assigner_limit: int = 27, assigner_topk: int = 18,
                  yaw_parametrization: str = "fcaf3d", nms_pre: int = 1000,
                  capacities: DetectionCapacities = DetectionCapacities(),
                  compute_dtype: Any = torch.float32):
         super().__init__()
+        self.n_classes = n_classes
+        self.assigner_limit = assigner_limit
+        self.assigner_topk = assigner_topk
         self.voxel_size = voxel_size
         self.yaw_parametrization = yaw_parametrization
         self.nms_pre = nms_pre
@@ -279,6 +287,10 @@ class FCAF3DDetector(nn.Module):
                 point_valid: torch.Tensor) -> List[LevelOut]:
         """points [B, P, 3] metric, feats [B, P, C], valid [B, P] ->
         per-level outputs stacked over scenes."""
+        if self.training and points.shape[0] != 1:
+            raise ValueError(f"a training batch holds one scene here (the "
+                             f"sparse batch norms' statistics are the "
+                             f"scene's), got {points.shape[0]}")
         scenes = []
         for b in range(points.shape[0]):
             st = sp.voxelize_points(points[b],
@@ -288,6 +300,55 @@ class FCAF3DDetector(nn.Module):
             scenes.append(self.head(self.backbone(st)))
         return [LevelOut(*(torch.stack(f) for f in zip(*level)))
                 for level in zip(*scenes)]
+
+    def loss(self, level_outs: List[LevelOut], gt_boxes: torch.Tensor,
+             gt_labels: torch.Tensor, gt_valid: torch.Tensor
+             ) -> Dict[str, torch.Tensor]:
+        """``loss_centerness``, ``loss_bbox``, ``loss_cls`` (reference
+        ``FCAF3DHead._loss``, JAX ``FCAF3DDetector.loss``): every level's
+        rows concatenated, assigned per scene; focal and centerness losses
+        over the positive count and the IoU loss over the summed
+        centerness targets, each averaged over the scenes and clamped at 1
+        and 1e-6; axis-aligned boxes (the yaw loss comes with the ARKit
+        path, ROADMAP queue 1, item 9).  gt_boxes [B, M, 7] gravity-center
+        z, gt_labels and gt_valid [B, M]."""
+        def cat(xs):
+            return torch.cat(xs, dim=1)
+        centerness = cat([o.centerness for o in level_outs])
+        bbox_pred = cat([o.bbox_pred for o in level_outs])
+        cls_scores = cat([o.cls_scores for o in level_outs])
+        points = cat([o.points for o in level_outs])
+        valid = cat([o.valid for o in level_outs])
+        scale_ids = cat([torch.full(o.valid.shape, i, dtype=torch.int64,
+                                    device=o.valid.device)
+                         for i, o in enumerate(level_outs)])
+        assign = [fcaf3d_assign(points[b], scale_ids[b], valid[b],
+                                gt_boxes[b], gt_labels[b], gt_valid[b],
+                                n_scales=len(level_outs),
+                                limit=self.assigner_limit,
+                                topk=self.assigner_topk)
+                  for b in range(points.shape[0])]
+        labels = torch.stack([a.labels for a in assign])
+        ctr_t = torch.stack([a.centerness_targets for a in assign])
+        box_t = torch.stack([a.bbox_targets for a in assign])
+
+        pos = (labels >= 0) & valid
+        n_pos = torch.clamp(pos.float().sum(dim=1).mean(), min=1.0)
+        denorm = torch.clamp(torch.where(pos, ctr_t, 0.0).sum(dim=1).mean(),
+                             min=1e-6)
+        b = centerness.shape[0]
+        loss_cls = sigmoid_focal_loss(
+            cls_scores.reshape(-1, self.n_classes), labels.reshape(-1),
+            valid.reshape(-1), avg_factor=n_pos * b)
+        loss_ctr = bce_loss(centerness.reshape(-1), ctr_t.reshape(-1),
+                            pos.reshape(-1), avg_factor=n_pos * b)
+        preds = decode_bbox(points, bbox_pred, self.yaw_parametrization)
+        loss_bbox = iou3d_loss(
+            preds[..., :6].reshape(-1, 6), box_t[..., :6].reshape(-1, 6),
+            weight=ctr_t.reshape(-1), valid=pos.reshape(-1),
+            avg_factor=denorm * b, with_yaw=False)
+        return {"loss_centerness": loss_ctr, "loss_bbox": loss_bbox,
+                "loss_cls": loss_cls}
 
     def get_bboxes(self, level_outs: List[LevelOut]
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -7,7 +7,9 @@ max-pool of p5, and the pyramid fuse that sums p2..p5 into one stride-4,
 32-channel map.  The convolutions are ``torch.nn.functional`` convs
 (cuDNN on the card), as the JAX package left them to XLA.  Activations are
 kept in ``channels_last`` memory, so the public [V, H, W, C] layout is a
-free view.
+free view.  ``freeze_at=2`` (detectron's ``freeze()``): the stem and res2
+keep FrozenBN, running statistics in training too; that their parameters
+get no update is the optimizer's mask (``train/optim.py``).
 """
 
 from __future__ import annotations
@@ -28,13 +30,16 @@ class BottleneckBlock(nn.Module):
     """1x1 -> 3x3 -> 1x1 with the stride in the first 1x1 (caffe2)."""
 
     def __init__(self, in_channels: int, bottleneck: int, features: int,
-                 stride: int = 1):
+                 stride: int = 1, frozen: bool = False):
         super().__init__()
-        self.shortcut = (ConvBN(in_channels, features, 1, stride)
+        self.shortcut = (ConvBN(in_channels, features, 1, stride,
+                                frozen=frozen)
                          if in_channels != features or stride != 1 else None)
-        self.conv1 = ConvBN(in_channels, bottleneck, 1, stride, act=relu)
-        self.conv2 = ConvBN(bottleneck, bottleneck, 3, 1, act=relu)
-        self.conv3 = ConvBN(bottleneck, features, 1, 1)
+        self.conv1 = ConvBN(in_channels, bottleneck, 1, stride, act=relu,
+                            frozen=frozen)
+        self.conv2 = ConvBN(bottleneck, bottleneck, 3, 1, act=relu,
+                            frozen=frozen)
+        self.conv3 = ConvBN(bottleneck, features, 1, 1, frozen=frozen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shortcut = x if self.shortcut is None else self.shortcut(x)
@@ -43,20 +48,21 @@ class BottleneckBlock(nn.Module):
 
 
 class ResNet50(nn.Module):
-    """R-50 trunk returning {res2..res5} (strides 4/8/16/32).  FrozenBN
-    (``freeze_at``) is the same eval BatchNorm here."""
+    """R-50 trunk returning {res2..res5} (strides 4/8/16/32); the stem and
+    the stages below ``freeze_at`` keep FrozenBN."""
 
     num_blocks = (3, 4, 6, 3)
 
-    def __init__(self):
+    def __init__(self, freeze_at: int = 2):
         super().__init__()
-        self.stem = ConvBN(3, 64, 7, 2, act=relu)
+        self.stem = ConvBN(3, 64, 7, 2, act=relu, frozen=freeze_at >= 1)
         cin, out_ch, bottleneck = 64, 256, 64
         for s in range(4):
             for b in range(self.num_blocks[s]):
                 stride = (1 if s == 0 else 2) if b == 0 else 1
                 self.add_module(f"res{s + 2}_block{b}", BottleneckBlock(
-                    cin, bottleneck, out_ch, stride))
+                    cin, bottleneck, out_ch, stride,
+                    frozen=freeze_at >= s + 2))
                 cin = out_ch
             out_ch *= 2
             bottleneck *= 2

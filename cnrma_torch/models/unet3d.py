@@ -6,7 +6,10 @@ channels (32, 64, 128, 256), layers down (1, 2, 3, 4), layers up (3, 2, 1),
 decoder upsampling and a projected skip merged as ``(x + y) / 2``; outputs
 coarse to fine (1/4, 1/2, 1/1).  The volume stays in ``channels_last_3d``
 memory, so the [B, X, Y, Z, C] tensors at the public boundary are views of
-the same bytes.  Remat has no counterpart in the test-mode forward.
+the same bytes.  In training with gradients on, every residual block runs
+under activation checkpointing (``layers.checkpoint``), as the JAX
+package's ``CNRMA`` builds the U-Net with ``remat=True``: a block keeps
+only its input for the backward and recomputes the rest.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cnrma_torch.models.layers import BatchNorm, Conv, ConvBN, upsample_linear
+from cnrma_torch.models.layers import (
+    BatchNorm, Conv, ConvBN, checkpoint, upsample_linear)
 
 relu = F.relu
 LAYERS_DOWN = (1, 2, 3, 4)      # residual blocks per encoder level
@@ -71,6 +75,12 @@ class UNet3D(nn.Module):
                                 BasicBlock3dZeroInit(rev[i]))
 
     def forward(self, volume: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        remat = self.training and torch.is_grad_enabled()
+
+        def block(name, x):
+            m = getattr(self, name)
+            return checkpoint(m, x) if remat else m(x)
+
         x = volume.permute(0, 4, 1, 2, 3).contiguous(
             memory_format=torch.channels_last_3d)
         skips = []
@@ -78,7 +88,7 @@ class UNet3D(nn.Module):
             if i > 0:
                 x = getattr(self, f"down{i}_stride")(x)
             for b in range(LAYERS_DOWN[i]):
-                x = getattr(self, f"down{i}_block{b}")(x)
+                x = block(f"down{i}_block{b}", x)
             skips.append(x)
         outs = []
         n = len(self.channels)
@@ -88,6 +98,6 @@ class UNet3D(nn.Module):
             y = relu(getattr(self, f"up{i}_proj_norm")(y))
             x = (x + y) / 2
             for b in range(LAYERS_UP[i - 1]):
-                x = getattr(self, f"up{i}_block{b}")(x)
+                x = block(f"up{i}_block{b}", x)
             outs.append(x.permute(0, 2, 3, 4, 1))
         return tuple(outs)

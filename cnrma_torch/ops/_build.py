@@ -46,6 +46,7 @@ _F = ctypes.c_float
 # C signature of every exported launcher; each returns cudaGetLastError().
 _SIGNATURES = {
     "cnrma_volume_accum": [_P] * 6 + [_I] * 7 + [_F] * 4 + [_I, _P],
+    "cnrma_volume_accum_bwd": [_P] * 5 + [_I] * 7 + [_F] * 4 + [_I, _P],
     "cnrma_ray_march": [_P] * 9 + [_I] * 13 + [_F] * 7 + [_P],
     "cnrma_rect_gather": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _P],
@@ -85,8 +86,9 @@ def _sources():
 
 
 def _digest() -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

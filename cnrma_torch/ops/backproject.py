@@ -12,6 +12,13 @@ On a CUDA tensor the accumulation is the hand-written kernel
 rows read through L1/L2); on a CPU tensor it is
 ``volume_accum_plain``, the same function in torch.  Layout is
 channels-last: features [V, H, W, C], volume [X, Y, Z, C].
+
+The volume is differentiable in the features through ``VolumeAccum``, on
+both devices: its backward (the JAX package's custom VJP
+``_accum_core_bwd`` after the mean's division) is the kernel
+``csrc/volume_accum_bwd.cu`` on a CUDA tensor and
+``volume_accum_bwd_plain`` on a CPU tensor.  Projections, view flags and
+the origin get no gradient: camera geometry is data.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 from cnrma_torch.ops import _build
 
 VOLUME_ACCUM = _build.LaunchCounter()
+VOLUME_ACCUM_BWD = _build.LaunchCounter()
 MAX_VIEWS = 1024          # the kernel keeps 53 B per view in shared memory
 
 
@@ -81,6 +89,32 @@ def volume_accum_plain(projections: torch.Tensor, features: torch.Tensor,
             (cnt > 0).reshape(*voxel_dim))
 
 
+def _kernel_inputs(projections: torch.Tensor, view_valid: torch.Tensor,
+                   rows: torch.Tensor, V: int, H: int, W: int, C: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Raise on inputs K1 and K1b do not take (``rows``: the features or
+    the volume's cotangent, read as 16-byte rows of 32 channels); return
+    the projections as fp32 and the view flags as bool, contiguous on the
+    rows' device."""
+    dev = rows.device
+    if rows.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"volume kernels take fp32 or bf16, got {rows.dtype}")
+    if C != 32:
+        raise ValueError(f"volume kernels are built for 32 channels, got {C}")
+    if V > MAX_VIEWS:
+        raise ValueError(f"volume kernels take at most {MAX_VIEWS} views")
+    if H * W >= 2 ** 30:
+        raise ValueError(f"volume kernels take under 2**30 pixels a view, "
+                         f"got {H} x {W}")
+    if projections.shape != (V, 3, 4) or view_valid.shape != (V,):
+        raise ValueError("projections must be [V, 3, 4] and view_valid [V]")
+    if not rows.is_contiguous() or rows.data_ptr() % 16:
+        raise ValueError("features and cotangents must be contiguous and "
+                         "16-byte aligned")
+    return (projections.to(device=dev, dtype=torch.float32).contiguous(),
+            view_valid.to(device=dev, dtype=torch.bool).contiguous())
+
+
 def volume_accum_cuda(projections: torch.Tensor, features: torch.Tensor,
                       view_valid: torch.Tensor, voxel_dim: Sequence[int],
                       voxel_size: float, origin: Sequence[float]
@@ -89,22 +123,7 @@ def volume_accum_cuda(projections: torch.Tensor, features: torch.Tensor,
     ``volume_accum_plain``.  Raises on inputs the kernel does not take."""
     V, H, W, C = features.shape
     dev = features.device
-    if features.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"volume kernel takes fp32 or bf16, got "
-                        f"{features.dtype}")
-    if C != 32:
-        raise ValueError(f"volume kernel is built for 32 channels, got {C}")
-    if V > MAX_VIEWS:
-        raise ValueError(f"volume kernel takes at most {MAX_VIEWS} views")
-    if H * W >= 2 ** 30:
-        raise ValueError(f"volume kernel takes under 2**30 pixels a view, "
-                         f"got {H} x {W}")
-    if projections.shape != (V, 3, 4) or view_valid.shape != (V,):
-        raise ValueError("projections must be [V, 3, 4] and view_valid [V]")
-    if not features.is_contiguous() or features.data_ptr() % 16:
-        raise ValueError("features must be contiguous and 16-byte aligned")
-    proj = projections.to(device=dev, dtype=torch.float32).contiguous()
-    ok = view_valid.to(device=dev, dtype=torch.bool).contiguous()
+    proj, ok = _kernel_inputs(projections, view_valid, features, V, H, W, C)
     out = torch.empty(*voxel_dim, C, dtype=features.dtype, device=dev)
     cnt = torch.empty(*voxel_dim, dtype=torch.float32, device=dev)
     valid = torch.empty(*voxel_dim, dtype=torch.bool, device=dev)
@@ -122,10 +141,117 @@ def volume_accum(projections: torch.Tensor, features: torch.Tensor,
                  voxel_size: float, origin: Sequence[float]
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(mean volume, count, valid): the CUDA kernel for CUDA features, the
-    plain version for CPU features."""
+    plain version for CPU features.  No gradient: see ``VolumeAccum``."""
     return _build.dispatch(features, volume_accum_cuda, volume_accum_plain,
                            projections, features, view_valid, voxel_dim,
                            voxel_size, origin)
+
+
+def _sum_cotangent(g_mean: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
+    """The mean's division taken backwards: [n, C] fp32 ``g_mean / cnt``
+    where ``cnt > 0``, else 0 (``_normalize_volume``)."""
+    c = cnt.reshape(-1, 1)
+    return torch.where(c > 0, g_mean.reshape(c.shape[0], -1).float()
+                       / torch.where(c > 0, c, 1.0), 0.0)
+
+
+def volume_accum_bwd_plain(projections: torch.Tensor, g_mean: torch.Tensor,
+                           cnt: torch.Tensor, view_valid: torch.Tensor,
+                           feat_hw: Tuple[int, int],
+                           voxel_dim: Sequence[int], voxel_size: float,
+                           origin: Sequence[float], dtype: torch.dtype
+                           ) -> torch.Tensor:
+    """Plain torch version of the volume backward, on any device: the
+    features' gradient [V, H, W, C] in ``dtype`` from the mean volume's
+    cotangent ``g_mean`` [X, Y, Z, C] and the view count ``cnt``
+    [X, Y, Z]: per view, an fp32 ``index_add_`` of ``g_mean / cnt`` onto
+    the pixel each voxel of that view reads."""
+    H, W = feat_hw
+    V, C = projections.shape[0], g_mean.shape[-1]
+    g_sum = _sum_cotangent(g_mean, cnt)
+    out = torch.zeros(V, H * W, C, dtype=torch.float32, device=g_mean.device)
+    for v in range(V):
+        flat, valid = project_voxels(projections[v], voxel_dim, voxel_size,
+                                     origin, H, W)
+        m = valid.reshape(-1) & view_valid[v]
+        out[v].index_add_(0, flat.reshape(-1),
+                          torch.where(m[:, None], g_sum, 0.0))
+    return out.reshape(V, H, W, C).to(dtype)
+
+
+def volume_accum_bwd_cuda(projections: torch.Tensor, g_mean: torch.Tensor,
+                          cnt: torch.Tensor, view_valid: torch.Tensor,
+                          feat_hw: Tuple[int, int],
+                          voxel_dim: Sequence[int], voxel_size: float,
+                          origin: Sequence[float], dtype: torch.dtype
+                          ) -> torch.Tensor:
+    """The ``csrc/volume_accum_bwd.cu`` kernel (K1b); same contract as
+    ``volume_accum_bwd_plain``.  The kernel sums in fp32 with atomics, in
+    an order that changes from run to run; the result is cast to
+    ``dtype``.  Raises on inputs the kernel does not take."""
+    H, W = feat_hw
+    V, C = projections.shape[0], g_mean.shape[-1]
+    dev = g_mean.device
+    if tuple(g_mean.shape) != (*voxel_dim, C) \
+            or tuple(cnt.shape) != tuple(voxel_dim):
+        raise ValueError(f"cotangent {tuple(g_mean.shape)} and count "
+                         f"{tuple(cnt.shape)} do not match the grid "
+                         f"{tuple(voxel_dim)}")
+    proj, ok = _kernel_inputs(projections, view_valid, g_mean, V, H, W, C)
+    count = cnt.to(device=dev, dtype=torch.float32).contiguous()
+    out = torch.empty(V, H, W, C, dtype=torch.float32, device=dev)
+    org = [float(o) for o in origin]
+    _build.launch("cnrma_volume_accum_bwd", VOLUME_ACCUM_BWD, dev,
+                  g_mean.data_ptr(), count.data_ptr(), proj.data_ptr(),
+                  ok.data_ptr(), out.data_ptr(), V, H, W, C, *voxel_dim,
+                  float(voxel_size), *org,
+                  int(g_mean.dtype == torch.bfloat16))
+    return out if dtype == torch.float32 else out.to(dtype)
+
+
+def volume_accum_bwd(projections: torch.Tensor, g_mean: torch.Tensor,
+                     cnt: torch.Tensor, view_valid: torch.Tensor,
+                     feat_hw: Tuple[int, int], voxel_dim: Sequence[int],
+                     voxel_size: float, origin: Sequence[float],
+                     dtype: torch.dtype) -> torch.Tensor:
+    """The features' gradient: K1b for a CUDA cotangent, the plain version
+    for a CPU one."""
+    return _build.dispatch(g_mean, volume_accum_bwd_cuda,
+                           volume_accum_bwd_plain, projections, g_mean, cnt,
+                           view_valid, feat_hw, voxel_dim, voxel_size,
+                           origin, dtype)
+
+
+class VolumeAccum(torch.autograd.Function):
+    """The mean volume as a function of the features, with its gradient.
+
+    Forward: ``volume_accum`` (K1 on a CUDA tensor, the plain version on a
+    CPU one); returns (mean volume, count, valid) and saves the
+    projections, the view flags and the fp32 count.  Backward: the mean's
+    cotangent onto the features through ``volume_accum_bwd`` (K1b or its
+    plain version), cast to the feature dtype; no gradient for anything
+    else."""
+
+    @staticmethod
+    def forward(ctx, projections, features, view_valid, voxel_dim,
+                voxel_size, origin):
+        mean, cnt, valid = volume_accum(projections, features, view_valid,
+                                        voxel_dim, voxel_size, origin)
+        ctx.save_for_backward(projections, view_valid, cnt)
+        ctx.grid = (tuple(voxel_dim), float(voxel_size), tuple(origin))
+        ctx.feat = (tuple(features.shape[1:3]), features.dtype)
+        ctx.mark_non_differentiable(cnt, valid)
+        return mean, cnt, valid
+
+    @staticmethod
+    def backward(ctx, g_mean, _g_cnt, _g_valid):
+        projections, view_valid, cnt = ctx.saved_tensors
+        voxel_dim, voxel_size, origin = ctx.grid
+        hw, dtype = ctx.feat
+        g_feat = volume_accum_bwd(projections, g_mean.contiguous(), cnt,
+                                  view_valid, hw, voxel_dim, voxel_size,
+                                  origin, dtype)
+        return None, g_feat, None, None, None, None
 
 
 def accumulate_views(projections: torch.Tensor, features: torch.Tensor,
@@ -133,7 +259,7 @@ def accumulate_views(projections: torch.Tensor, features: torch.Tensor,
                      voxel_size: float, origin: Sequence[float],
                      accum_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Accumulate all views into the mean feature volume
-    (``accumulate_views``).
+    (``accumulate_views``), differentiable in ``features``.
 
     Args:
         projections: [V, 3, 4] stride-adjusted projections (fp32).
@@ -149,6 +275,7 @@ def accumulate_views(projections: torch.Tensor, features: torch.Tensor,
         valid [X, Y, Z] bool (observed by at least one view).
     """
     del accum_dtype
-    volume, _, valid = volume_accum(projections, features, view_valid,
-                                    voxel_dim, voxel_size, origin)
+    volume, _, valid = VolumeAccum.apply(projections, features, view_valid,
+                                         tuple(voxel_dim), voxel_size,
+                                         tuple(origin))
     return volume, valid

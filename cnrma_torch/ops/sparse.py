@@ -12,7 +12,10 @@ generative transpose, which ``kernel_map`` sorts for itself.
 
 The convolution itself is a per-offset row gather and matmul with fp32
 accumulation (``apply_sparse_conv``), as XLA computed it outside any
-Pallas kernel.  Weights are [K offsets, Cin, Cout] like ME kernels.
+Pallas kernel.  Weights are [K offsets, Cin, Cout] like ME kernels.  Row
+gathers that carry a gradient are ``index_select``: its backward is an
+``index_add_``, where ``feats[idx]``'s sorts the indices first (about
+18 ms a gather at the training capacities on the H100, PERF.md).
 """
 
 from __future__ import annotations
@@ -125,7 +128,8 @@ def apply_sparse_conv(feats: torch.Tensor, weights: torch.Tensor,
     acc = feats.new_zeros((idx.shape[1], weights.shape[-1]),
                           dtype=torch.float32)
     for k in range(weights.shape[0]):
-        g = torch.where(found[k][:, None], feats[idx[k]].float(), 0.0)
+        g = torch.where(found[k][:, None],
+                        feats.index_select(0, idx[k]).float(), 0.0)
         acc += g @ w[k]
     return acc.to(feats.dtype)
 
@@ -184,8 +188,8 @@ def max_pool(st: SparseTensor, factor: int, capacity: int) -> SparseTensor:
     neg = torch.finfo(st.feats.dtype).min
     acc = st.feats.new_full((capacity, st.num_channels), neg)
     for k in range(offsets.shape[0]):
-        acc = torch.maximum(acc, torch.where(found[k][:, None],
-                                             st.feats[idx[k]], neg))
+        acc = torch.maximum(acc, torch.where(
+            found[k][:, None], st.feats.index_select(0, idx[k]), neg))
     acc = torch.where(found.any(dim=0)[:, None], acc, 0.0)
     return SparseTensor(keys=out_keys, coords=out_coords,
                         feats=acc.to(st.feats.dtype),
@@ -265,7 +269,7 @@ def prune_topk(st: SparseTensor, scores: torch.Tensor, keep: int
     s = torch.where(st.valid, scores.float(), torch.finfo(torch.float32).min)
     top = torch.sort(s, descending=True, stable=True)[1][:keep]
     keys = torch.where(st.valid[top], st.keys[top], SENTINEL_KEY)
-    keys_sorted, feats_s = sort_by_key(keys, st.feats[top])
+    keys_sorted, feats_s = sort_by_key(keys, st.feats.index_select(0, top))
     return SparseTensor(keys=keys_sorted, coords=st.grid.unpack(keys_sorted),
                         feats=feats_s, stride=st.stride, grid=st.grid)
 
@@ -287,5 +291,6 @@ def interpolate_at(st: SparseTensor, positions: torch.Tensor,
     coord = ((p0[None] + corners[:, None, :]) * s).to(torch.int32)
     keys = torch.where(pos_valid[None, :], st.grid.pack(coord), SENTINEL_KEY)
     idx, found = lookup(st.keys, keys.reshape(-1))
-    g = st.feats[idx].float().reshape(8, positions.shape[0], st.num_channels)
+    g = st.feats.index_select(0, idx).float().reshape(
+        8, positions.shape[0], st.num_channels)
     return (g * (w * found.reshape(w.shape))[..., None]).sum(dim=0)

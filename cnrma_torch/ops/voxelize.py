@@ -50,7 +50,7 @@ class VoxelGrid(NamedTuple):
 def sort_by_key(keys: torch.Tensor, *arrays: torch.Tensor):
     """Stable ascending sort of ``keys``, applied to the payload arrays."""
     keys_sorted, perm = torch.sort(keys, stable=True)
-    return (keys_sorted,) + tuple(a[perm] for a in arrays)
+    return (keys_sorted,) + tuple(a.index_select(0, perm) for a in arrays)
 
 
 def unique_sorted(keys_sorted: torch.Tensor, capacity: int

@@ -18,8 +18,9 @@ names, keys, dtypes and z convention:
 Offline scoring is then ``python -m cnrma_torch.tools.nms_bbox`` and
 ``python -m cnrma_torch.tools.evaluate_bbox``.
 
-``CHECKPOINT`` is a ``.pt`` state dict of the port, or an ``.npz`` of a flax
-variable tree's flattened leaves (``params/...``, ``batch_stats/...``),
+``CHECKPOINT`` is a ``.pt`` state dict of the port or a checkpoint of its
+train CLI (``cnrma_torch.tools.train``), or an ``.npz`` of a flax variable
+tree's flattened leaves (``params/...``, ``batch_stats/...``),
 loaded through ``bridge.from_flax``.  Without one the parameters are
 synthesized from ``--seed`` (``synthetic.synthesize_parameters``).
 
@@ -57,8 +58,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                                             "forward over a dataset split")
     p.add_argument("config")
     p.add_argument("checkpoint", nargs="?", default=None,
-                   help=".pt state dict of the port, or .npz of flattened "
-                        "flax leaves")
+                   help=".pt state dict or train checkpoint of the port, "
+                        "or .npz of flattened flax leaves")
     p.add_argument("--save-path")
     p.add_argument("--middle-save-path")
     p.add_argument("--middle-visualize-path",
@@ -96,8 +97,10 @@ def load_parameters(model: torch.nn.Module, checkpoint: Optional[str],
     elif checkpoint.endswith(".npz"):
         model.load_state_dict(from_flax(read_flax_npz(checkpoint), model))
     else:
-        model.load_state_dict(torch.load(checkpoint, map_location="cpu",
-                                         weights_only=True))
+        state = torch.load(checkpoint, map_location="cpu", weights_only=True)
+        if "model" in state and "optimizer" in state:   # a train checkpoint
+            state = state["model"]
+        model.load_state_dict(state)
 
 
 def write_scene(scene: str, out: Dict[str, Any], voxel_size: float,

@@ -46,7 +46,8 @@ def tiny_torch_cnrma(**overrides):
     """The port's counterpart of ``test_pipeline.tiny_model``."""
     cfg = dict(voxel_dim=(16, 16, 16), voxel_size=0.1, n_classes=3,
                ray_samples=24, rays_per_view_cap=512, max_points=1024,
-               pts_threshold=500, nms_pre=16, voxel_size_fcaf3d=0.05,
+               pts_threshold=500, assigner_limit=2, assigner_topk=4,
+               nms_pre=16, voxel_size_fcaf3d=0.05,
                capacities=TorchCaps.tiny())
     cfg.update(overrides)
     return TorchCNRMA(**cfg)

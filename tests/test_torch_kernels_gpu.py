@@ -6,10 +6,13 @@ nvcc).  Skipped where there is no CUDA device.
 The two main-path kernels are built with ``--fmad=false`` and sum in the
 same order as their plain versions, so ids, masks and counts must be equal;
 volumes agree to fp32 rounding (1e-6 absolute on features in [0, 1]) and,
-in bf16, to one bf16 ulp of the mean.  The ray-march kernel's NeuS weights
-take their cumulative sum in another order than torch's CUDA ``cumsum``:
-its j0/has_hit are equal, its kept sets equal outside samples within 1e-5
-of the weight threshold, and its weights agree to 1e-5.  The probe kernels
+in bf16, to one bf16 ulp of the mean.  The volume's backward (K1b) sums
+with fp32 atomics in an order that changes from run to run: within 1e-5
+of the largest gradient, and one bf16 ulp more in bf16.  The ray-march
+kernel's NeuS weights take their cumulative sum in another order than
+torch's CUDA ``cumsum``: its j0/has_hit are equal, its kept sets equal
+outside samples within 1e-5 of the weight threshold, and its weights
+agree to 1e-5.  The probe kernels
 copy, gather or multiply small integers, so they must equal their plain
 versions exactly; the tensor-core ``dot`` is held on random integers, which
 show a row or column read from the wrong place where all-ones inputs do
@@ -59,6 +62,55 @@ def _ring_scene(views, h, w, dim, vs, seed=0):
     proj[:, :2, :] /= 4
     feats = torch.from_numpy(rng.rand(views, h, w, 32).astype(np.float32))
     return proj, feats
+
+
+def _volume_bwd_check(cuda, dtype, proj, feats, valid, dim, vs, origin,
+                      seed=0):
+    """K1b against its plain version on K1's count and a random cotangent:
+    within 1e-5 of the largest gradient in fp32 (the kernel's atomics sum
+    in an order that changes from run to run), and within one bf16 ulp
+    more in bf16; then ``VolumeAccum``'s gradient on the card against the
+    plain one."""
+    p = torch.from_numpy(proj).to(cuda)
+    f = feats.to(cuda, dtype)
+    ok = valid.to(cuda)
+    _, cnt, _ = bp.volume_accum_cuda(p, f, ok, dim, vs, origin)
+    g = torch.from_numpy(np.random.RandomState(seed).randn(*dim, 32).astype(
+        np.float32)).to(cuda, dtype)
+    args = (p, g, cnt, ok, tuple(f.shape[1:3]), dim, vs, origin, dtype)
+    got = bp.volume_accum_bwd_cuda(*args)
+    want = bp.volume_accum_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == dtype and got.shape == f.shape
+    scale = float(want.float().abs().max())
+    assert scale > 0
+    err = (got.float() - want.float()).abs()
+    tol = 1e-5 * scale + (0.0 if dtype == torch.float32
+                          else 2.0 ** -7 * want.float().abs())
+    assert bool((err <= tol).all())
+    assert not got[~ok].any()
+    x = f.clone().requires_grad_()
+    vol, _ = bp.accumulate_views(p, x, ok, dim, vs, origin)
+    vol.backward(g)
+    assert bool(((x.grad.float() - want.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["ring", "ragged", "behind"])
+def test_volume_backward_kernel_matches_plain(cuda, dtype, case):
+    """K1b: a ring of views with one invalid; odd shapes (a grid and
+    feature maps that are no multiple of the tile or of 16); a camera
+    turned round, whose voxels lie behind it."""
+    vs, origin = 0.3, (0.0, 0.0, 0.0)
+    views, h, w, dim = {"ring": (5, 24, 32, (16, 16, 8)),
+                        "ragged": (3, 17, 23, (21, 13, 11)),
+                        "behind": (4, 30, 40, (20, 20, 12))}[case]
+    proj, feats = _ring_scene(views, h, w, dim, vs, seed=2)
+    valid = torch.ones(views, dtype=torch.bool)
+    valid[1] = False
+    if case == "behind":
+        proj[0] = -proj[0]
+    _volume_bwd_check(cuda, dtype, proj, feats, valid, dim, vs, origin)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,7 +1,8 @@
 """The PyTorch port imports and runs with JAX, flax and the JAX package
 unavailable, as on a GPU machine that has none of them: a tiny forward,
 then the test CLI, ``nms_bbox`` and ``evaluate_bbox`` on one tiny synthetic
-scene."""
+scene, and one step of the train CLI on it, whose checkpoint the test CLI
+loads."""
 
 import os
 import subprocess
@@ -29,7 +30,10 @@ import cnrma_torch.eval.indoor_eval, cnrma_torch.geometry.boxes
 import cnrma_torch.geometry.tsdf, cnrma_torch.ops.iou3d, cnrma_torch.ops.nms
 import cnrma_torch.utils.marching_cubes, cnrma_torch.utils.ply
 import cnrma_torch.tools.test, cnrma_torch.tools.nms_bbox
-import cnrma_torch.tools.evaluate_bbox
+import cnrma_torch.tools.evaluate_bbox, cnrma_torch.tools.train
+import cnrma_torch.train.loop, cnrma_torch.train.optim, cnrma_torch.train.state
+import cnrma_torch.data.loader, cnrma_torch.models.assigner
+import cnrma_torch.ops.losses
 from cnrma_torch.models.cn_rma import CNRMA
 from cnrma_torch.models.fcaf3d import DetectionCapacities
 torch.manual_seed(0)
@@ -74,6 +78,32 @@ m = evaluate_bbox.main(["--data_path", data, "--result_path", res,
 assert os.path.isfile(os.path.join(res, "scene0000_00",
                                    "scene0000_00_atlas_bbox.npz"))
 assert "mAP_0.25" in m
+
+# one step of the train CLI on the same scene, read as a training split
+import shutil
+from cnrma_torch.tools import train as train_cli
+shutil.copy(ann, os.path.join(data, "scannet_infos_train.pkl"))
+small = ["model.ray_samples=32", "model.rays_per_view_cap=64",
+         "model.max_points=128",
+         "model.capacities={'voxelize':256,'stride2':128,'stride4':64,"
+         "'levels':(32,16,8,8),'neck':(64,32,16)}"]
+records, ckpt = train_cli.main([
+    os.path.join(REPO, "configs", "ray_marching_scannet.py"), "--device",
+    "cpu", "--max-steps", "1", "--work-dir", os.path.join(root, "wd"),
+    "--cfg-options", f"data.train.data_root={data}",
+    f"data.train.ann_file={os.path.join(data, 'scannet_infos_train.pkl')}",
+    "data.train.num_frames=2", "data.train.image_size=(64,32)",
+    "model.voxel_dim_train=(16,16,16)", "data.train.voxel_dim=(16,16,16)",
+    *small])
+assert len(records) == 1 and os.path.isfile(ckpt)
+assert all(np.isfinite(v) for v in records[0]["log_vars"].values())
+test_cli.main([
+    os.path.join(REPO, "configs", "ray_marching_scannet.py"), ckpt,
+    "--device", "cpu", "--save-path", os.path.join(root, "res2"),
+    "--cfg-options", f"data.test.data_root={data}",
+    f"data.test.ann_file={ann}", "data.test.num_frames=2",
+    "data.test.image_size=(64,32)", "model.voxel_dim_test=(16,16,16)",
+    "data.test.voxel_dim=(16,16,16)", *small])
 loaded = [m for m in ("jax", "flax", "cnrma_tpu") if sys.modules.get(m)]
 assert not loaded, loaded
 print("NO_JAX_OK")

@@ -235,8 +235,8 @@ def test_builder_refuses_later_items():
                       ("configs/fcaf3d_middle_scannet.py", "item 9")):
         with pytest.raises(NotImplementedError, match=what):
             t_builder.build_model(TConfig.fromfile(cfg))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_builder.build_model(TConfig.fromfile(CONFIG), mode="train")
+    train = t_builder.build_model(TConfig.fromfile(CONFIG), mode="train")
+    assert train.training and train.voxel_dim == (192, 192, 80)
     with pytest.raises(NotImplementedError, match="item 9"):
         t_builder.build_dataset(TConfig.fromfile(
             "configs/ray_marching_arkit.py"), "test")
