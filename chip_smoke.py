@@ -650,31 +650,41 @@ CLI_CONFIG = "configs/ray_marching_scannet.py"
 CLI_FILES = ("{s}.npz", "{s}.ply", "{s}_bbox_raw.npz")
 
 
-def _check_scene_files(save: str, middle: str, scene: str, dim) -> dict:
+def _check_scene_files(save: str, middle: str, scene: str, dim,
+                       need_points: bool = True) -> dict:
     """Raise unless a scene's four result files hold the right keys, shapes
-    and finite values and its raw boxes are not empty; returns the counts
-    of raw boxes and middle points."""
+    and finite values, and it has raw boxes exactly when it has kept points
+    (the detector's top-k rows are valid where the points' voxels are);
+    ``need_points`` also asks for a non-empty cloud.  Returns the counts of
+    raw boxes and middle points."""
     d = os.path.join(save, scene)
     for f in CLI_FILES:
         if not os.path.isfile(os.path.join(d, f.format(s=scene))):
             raise AssertionError(f"{scene}: {f.format(s=scene)} missing")
+    bad = []
     with np.load(os.path.join(d, scene + ".npz")) as z:
         tsdf, origin = z["tsdf"], z["origin"]
-        ok = (tsdf.shape == tuple(dim) and origin.shape == (1, 3)
-              and float(z["voxel_size"]) == 0.04
-              and np.isfinite(tsdf).all() and np.isfinite(origin).all())
+        if not (tsdf.shape == tuple(dim) and origin.shape == (1, 3)
+                and float(z["voxel_size"]) == 0.04
+                and np.isfinite(tsdf).all() and np.isfinite(origin).all()):
+            bad.append(f"tsdf {tsdf.shape}, origin {origin.shape}")
     with open(os.path.join(d, scene + ".ply"), "rb") as f:
-        ok &= f.read(3) == b"ply"
+        if f.read(3) != b"ply":
+            bad.append("no PLY header")
     with np.load(os.path.join(d, scene + "_bbox_raw.npz")) as z:
         b, sc = z["bboxes"], z["scores"]
-        ok &= (b.ndim == 2 and b.shape[1] == 6 and sc.shape == (len(b), 18)
-               and len(b) > 0 and np.isfinite(b).all()
-               and np.isfinite(sc).all())
+        if not (b.ndim == 2 and b.shape[1] == 6 and sc.shape == (len(b), 18)
+                and np.isfinite(b).all() and np.isfinite(sc).all()):
+            bad.append(f"boxes {b.shape}, scores {sc.shape}")
     vert = np.load(os.path.join(middle, scene + "_vert.npy"))
-    ok &= vert.ndim == 2 and vert.shape[1] == 35 and np.isfinite(vert).all()
-    if not ok:
+    if not (vert.ndim == 2 and vert.shape[1] == 35
+            and np.isfinite(vert).all()):
+        bad.append(f"points {vert.shape}")
+    if (len(b) > 0) != (len(vert) > 0) or (need_points and not len(vert)):
+        bad.append(f"{len(b)} raw boxes from {len(vert)} points")
+    if bad:
         raise AssertionError(f"{scene}: a result file has the wrong keys, "
-                             f"shapes or values (raw boxes {len(b)})")
+                             f"shapes or values: {'; '.join(bad)}")
     return {"raw_boxes": len(b), "middle_points": len(vert)}
 
 
@@ -1159,6 +1169,31 @@ def phase_train_reference(dev) -> None:
                              f"{missed}")
 
 
+def _test_forward_tsdf(cfg, data: str, ann: str, ckpts, written, dev):
+    """The fine TSDF of the test split's first scene under each checkpoint
+    in ``ckpts`` (as the test CLI reads it: dataset seed 0, generator seed
+    0), each held against ``written``: the max abs differences."""
+    from cnrma_torch.core.builder import build_dataset, build_model
+    from cnrma_torch.tools import test as test_cli
+    cfg.merge_from_options({"data.test.data_root": data,
+                            "data.test.ann_file": ann})
+    sample = build_dataset(cfg, "test", seed=0)[0]
+    batch = {k: torch.from_numpy(np.asarray(sample[k])[None]).to(dev)
+             for k in ("imgs", "projection", "view_valid", "offset")}
+    model = build_model(cfg, mode="test")
+    diffs = []
+    for ckpt in ckpts:
+        test_cli.load_parameters(model, ckpt, 0)
+        model.to(dev)
+        out = model(batch, generator=torch.Generator(dev).manual_seed(0))
+        fine = out["tsdf"][f"scene_tsdf_{model.tsdf_head.keys[-1]}"][0]
+        diffs.append(float((fine.float().cpu() - written).abs().max()))
+        del out, fine
+    del model, batch
+    torch.cuda.empty_cache()
+    return diffs
+
+
 def phase_train_cli(dev) -> dict:
     """The user's training loop on the card: ``python -m
     cnrma_torch.tools.train configs/ray_marching_scannet.py --max-steps 3``
@@ -1170,7 +1205,8 @@ def phase_train_cli(dev) -> dict:
     (``timing.stage_marks`` in the train loop); K1, K1b and K2 once
     a step; then one backward of the reconstruction losses alone, which
     must reach the 2D tower (through K1b); then the test CLI on one scene
-    from the checkpoint the train CLI wrote.  Returns the launches."""
+    from the checkpoint the train CLI wrote, whose TSDF must be this
+    process's test forward of that checkpoint.  Returns the launches."""
     from cnrma_torch.core.builder import build_dataset, build_model
     from cnrma_torch.core.config import Config
     from cnrma_torch.data.loader import collate_scenes
@@ -1254,12 +1290,27 @@ def phase_train_cli(dev) -> dict:
                               middle, "--cfg-options",
                               f"data.test.data_root={data}",
                               f"data.test.ann_file={val}"])
-        n = _check_scene_files(save, middle, recs[0]["scene"],
-                               cfg.model.voxel_dim_test)
-        log(f"[train cli] the test CLI ran {recs[0]['scene']} from "
+        scene = recs[0]["scene"]
+        # a few AdamW steps from random weights move the TSDF far (its
+        # surface, and so the kept points and boxes, come and go from run
+        # to run), so the files must be well formed but may hold no points
+        n = _check_scene_files(save, middle, scene, cfg.model.voxel_dim_test,
+                               need_points=False)
+        log(f"[train cli] the test CLI ran {scene} from "
             f"{os.path.basename(ckpt)}: forward {recs[0]['forward_s']:.3f} "
             f"s, {n['raw_boxes']} raw boxes, {n['middle_points']} points, "
             f"files well formed")
+        with np.load(os.path.join(save, scene, scene + ".npz")) as z:
+            written = torch.from_numpy(z["tsdf"])
+        err, moved = _test_forward_tsdf(cfg, data, val, (ckpt, init),
+                                        written, dev)
+        log(f"[train cli] {scene}'s TSDF from the CLI against this "
+            f"process's test forward of {os.path.basename(ckpt)}: max|err| "
+            f"{err:.3g} (tol 1e-5); of the initial weights: max|diff| "
+            f"{moved:.3g} (must exceed 1e-3)")
+        if not err <= 1e-5 or not moved > 1e-3:
+            raise AssertionError("the test CLI's TSDF is not the trained "
+                                 "checkpoint's")
         return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
