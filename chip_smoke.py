@@ -10,9 +10,10 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
   1. device: CUDA required; card name and power limit from nvidia-smi.
   2. build: every kernel source in cnrma_torch/csrc through nvcc; then
      ``cuobjdump`` of the library: the dot kernel's SASS must hold the
-     tensor cores' warpgroup MMA (HGMMA) and the TMA load (UTMALDG), and
-     the registers and local memory of the dot, flat gather, lane gather
-     and onehot kernels are logged.
+     tensor cores' warpgroup MMA (HGMMA) and the TMA load (UTMALDG); the
+     registers and local memory of the dot, flat gather, lane gather,
+     onehot, volume and volume backward kernels, and the volume backward's
+     atomic instructions, are logged.
   3. volume kernel vs plain at the full_ship shape (50 views of
      [120, 160, 32], 256x256x96 voxels at 4 cm), fp32 and bf16; the
      pixel-row reads (hits) against the distinct rows.
@@ -46,7 +47,10 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
      (40 views of [120, 160, 32], a 192x192x80 grid), bf16 and fp32,
      within 1e-5 of the largest gradient (its fp32 atomics sum in an order
      that changes from run to run; bf16 one bf16 ulp more), timed beside
-     the plain version and ``index_add_``.
+     the plain version and ``index_add_``; the (voxel, view) pairs, the
+     distinct (tile, view, pixel) rows its tiles merge them into (counted
+     in torch on the card) and the pairs that skipped its shared-memory
+     window (counted by the kernel).
   6d. train reference: a tiny fp32 training step on the GPU against the
      same step on the CPU (same parameters, batch, draws and kept points):
      losses, gradients (the 2D tower's as groups and, by cosine, each
@@ -87,6 +91,7 @@ call, so it holds the host's launch work, which dominates calls under
 kernel table as JSON; the last line is the device record.
 """
 
+import collections
 import contextlib
 import io
 import json
@@ -188,7 +193,11 @@ def phase_device() -> str:
 # tensor cores through wgmma (HGMMA) fed by TMA loads (UTMALDG)
 SASS_MUST_HOLD = {"dot_kernel": ("HGMMA", "UTMALDG")}
 RESOURCES_LOGGED = ("dot_kernel", "flat_gather_kernel", "lane_gather_kernel",
-                    "onehot_kernel")
+                    "onehot_kernel", "volume_accum_kernel",
+                    "volume_accum_bwd_kernel")
+# kernels whose atomic instructions are logged: K1b's shared-memory window
+# sums with shared atomics (ATOMS) and flushes with global ones (RED)
+ATOMICS_LOGGED = ("volume_accum_bwd_kernel",)
 
 
 def _functions(text: str, pattern: str) -> dict:
@@ -197,12 +206,20 @@ def _functions(text: str, pattern: str) -> dict:
     return dict(zip(parts[1::2], parts[2::2]))
 
 
+def _all_named(functions: dict, kernel: str) -> dict:
+    """{mangled name: text} of every function named ``kernel`` (each
+    template instance), matched by the length-prefixed mangled name, so
+    that a longer name ending in the same words does not match."""
+    found = {name: text for name, text in functions.items()
+             if f"{len(kernel)}{kernel}" in name}
+    if not found:
+        raise AssertionError(f"cuobjdump: no function named {kernel}")
+    return found
+
+
 def _named(functions: dict, kernel: str) -> str:
-    """The text of the one function named ``kernel``, matched by its
-    length-prefixed mangled name, so that a longer name ending in the same
-    words does not match."""
-    found = [text for name, text in functions.items()
-             if f"{len(kernel)}{kernel}" in name]
+    """The text of the one function named ``kernel``."""
+    found = list(_all_named(functions, kernel).values())
     if len(found) != 1:
         raise AssertionError(f"cuobjdump: {len(found)} functions named "
                              f"{kernel}")
@@ -228,12 +245,17 @@ def sass_check() -> None:
             raise AssertionError(f"{kernel}: SASS holds no {missing}")
         log(f"[build] {kernel} SASS holds " + ", ".join(
             f"{op} x{text.count(op)}" for op in ops))
+    for kernel in ATOMICS_LOGGED:
+        for name, text in _all_named(sass, kernel).items():
+            ops = collections.Counter(re.findall(
+                r"\b((?:ATOMS|ATOMG|ATOM|RED)\.[A-Z0-9_.]+)", text))
+            log(f"[build] {name} atomics in SASS: {dict(ops)}")
     usage = _functions(dump("-res-usage"), r"Function (\S+):")
     for kernel in RESOURCES_LOGGED:
-        text = _named(usage, kernel)
-        regs = re.search(r"REG:(\d+)", text).group(1)
-        local = re.search(r"LOCAL:(\d+)", text).group(1)
-        log(f"[build] {kernel}: {regs} registers, {local} B local memory")
+        for name, text in _all_named(usage, kernel).items():
+            regs = re.search(r"REG:(\d+)", text).group(1)
+            local = re.search(r"LOCAL:(\d+)", text).group(1)
+            log(f"[build] {name}: {regs} registers, {local} B local memory")
 
 
 def phase_build() -> None:
@@ -894,6 +916,26 @@ def volume_bwd_work(args) -> tuple:
     return nbytes, ops, pairs
 
 
+def volume_bwd_rows(args, tile) -> int:
+    """Distinct (tile, view, pixel) rows of the volume backward on these
+    inputs, tiles of ``tile`` voxels: the rows K1b's blocks merge their
+    (voxel, view) pairs into before they leave as atomics."""
+    from cnrma_torch.ops import backproject as bp
+    proj, g, cnt, ok, (h, w), dim, vs, origin, dtype = args
+    ids = [torch.arange(n, device=g.device) // t for n, t in zip(dim, tile)]
+    per = [-(-n // t) for n, t in zip(dim, tile)]
+    tile_id = ((ids[0][:, None, None] * per[1] + ids[1][None, :, None])
+               * per[2] + ids[2][None, None, :])
+    rows = 0
+    for v in range(proj.shape[0]):
+        if not bool(ok[v]):
+            continue
+        flat, valid = bp.project_voxels(proj[v], dim, vs, origin, h, w)
+        m = valid & (cnt > 0)
+        rows += torch.unique(tile_id[m] * (h * w) + flat[m]).numel()
+    return rows
+
+
 def index_add_library(args):
     """The one PyTorch call that computes the volume backward:
     ``Tensor.index_add_`` of every valid (voxel, view) pair's row
@@ -954,6 +996,14 @@ def phase_volume_backward(dev) -> dict:
             f"{scale:.4g} (tol {tol_name}); (voxel, view) pairs {pairs:.0f}; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms{note}; bound "
             f"{row['bound_ms']:.4f} ms by {row['bound_by']}")
+        if dtype == torch.float32:
+            direct = torch.zeros(1, dtype=torch.int64, device=dev)
+            bp.volume_accum_bwd_cuda(*args, direct=direct)
+            rows = volume_bwd_rows(args, bp.K1B_TILE)
+            log(f"[volume bwd] tiles of {bp.K1B_TILE}: distinct (tile, view, "
+                f"pixel) rows {rows} for {pairs:.0f} pairs ({pairs / rows:.2f}"
+                f" pairs a row); pairs that skipped the window "
+                f"{int(direct.item())}")
         del args, got, want, err, tol
         torch.cuda.empty_cache()
     return row
@@ -1454,7 +1504,7 @@ def main() -> None:
              launches=launches["ray_march"], **ray, library_ms=None),
         dict(name="volume_accum_bwd", route="cuda",
              source="cnrma_torch/csrc/volume_accum_bwd.cu",
-             replaces="cnrma_tpu/ops/backproject.py:283",
+             replaces="cnrma_tpu/ops/backproject.py:302",
              launches=train_launches["volume_accum_bwd"], **bwd),
         *probes,
     ]

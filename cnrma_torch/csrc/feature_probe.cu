@@ -18,9 +18,9 @@
 //   onehot     out = float(tab[idx]), each thread loading 8 bf16 of a
 //              table row (16 bytes) and storing them widened as two float4,
 //              0 where idx is outside the table  (one-hot gather-by-matmul)
-//   dma        rows [row0, row0 + rows) copied global -> shared by one
-//              bulk asynchronous copy completed on an mbarrier, then
-//              doubled                           (make_async_copy HBM->VMEM)
+//   dma        rows [row0, row0 + rows) copied global -> shared, each
+//              thread its own 16 bytes by cp.async, waited on by that
+//              thread alone, then doubled    (make_async_copy HBM->VMEM)
 //   empty      nothing: one block of 32 threads that touches no memory, the
 //              least device time a launch takes (the launch floor)
 //
@@ -349,32 +349,31 @@ onehot_kernel(const int32_t* __restrict__ idx,        // [M]
   }
 }
 
-__global__ void dma_kernel(const float* __restrict__ x,   // [R, D]
-                           float* __restrict__ out,       // [rows, D]
-                           int row0, int rows, int D) {
-  extern __shared__ __align__(128) unsigned char dma_smem[];
-  __shared__ __align__(8) uint64_t bar;
-  const float* buf = reinterpret_cast<const float*>(dma_smem);
-  const uint32_t bytes = static_cast<uint32_t>(rows) * D * sizeof(float);
-  const uint32_t bar_addr = smem_addr(&bar);
-  if (threadIdx.x == 0) {
-    mbar_init(bar_addr, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    mbar_expect_tx(bar_addr, bytes);
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n"
-        :: "r"(smem_addr(dma_smem)),
-           "l"(x + static_cast<size_t>(row0) * D), "r"(bytes),
-           "r"(bar_addr)
-        : "memory");
-  }
-  mbar_wait(bar_addr, 0);         // phase 0 completes when the bytes land
-  for (int i = threadIdx.x; i < rows * D; i += blockDim.x)
-    out[i] = buf[i] * 2.0f;
+constexpr int kDmaThreads = 64;
+
+// dma: each thread copies its own 16-byte piece global -> shared with
+// cp.async (LDGSTS), waits for its own copy alone (it reads back no other
+// thread's bytes, so no barrier and no mbarrier), doubles it and stores it
+// as one float4.  A block copies kDmaThreads pieces into its own shared
+// memory, so any size of a multiple of 16 bytes goes.  At the probe's 4 KB
+// the time is the launch and one dependent chain (global load, shared
+// store and load, global store).  Blocks of 64 threads, one piece each,
+// were the fastest form timed, 1-3% ahead of blocks of 32, 128 or 256 and
+// of 2 to 8 pieces a thread; one bulk copy a warp on its own mbarrier
+// took as long as the one bulk copy a block it would replace (PERF.md,
+// section 6).
+__global__ void __launch_bounds__(kDmaThreads)
+dma_kernel(const float4* __restrict__ x,    // the rows' first piece
+           float4* __restrict__ out, int n4) {
+  __shared__ __align__(16) float4 buf[kDmaThreads];
+  const int i = blockIdx.x * kDmaThreads + threadIdx.x;
+  if (i >= n4) return;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(buf + threadIdx.x)), "l"(x + i)
+               : "memory");
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  const float4 v = buf[threadIdx.x];
+  out[i] = make_float4(2.0f * v.x, 2.0f * v.y, 2.0f * v.z, 2.0f * v.w);
 }
 
 // cuTensorMapEncodeTiled lives in libcuda, not in the CUDA runtime: it is
@@ -517,14 +516,17 @@ extern "C" int cnrma_probe_onehot(const void* idx, const void* tab, void* out,
 
 extern "C" int cnrma_probe_dma(const void* x, void* out, int R, int row0,
                                int rows, int D, void* stream) {
-  const long long bytes = static_cast<long long>(rows) * D * sizeof(float);
-  // within the 48 KB a launch may take without opting in, beside the
-  // kernel's static mbarrier
-  if (row0 < 0 || row0 + rows > R || bytes % 16 || bytes > 47 * 1024)
+  const long long n = static_cast<long long>(rows) * D;
+  if (row0 < 0 || rows < 0 || row0 + rows > R || n % 4 || n / 4 >= (1ll << 31)
+      || (reinterpret_cast<uintptr_t>(x) + 4ull * row0 * D) % 16
+      || reinterpret_cast<uintptr_t>(out) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (bytes == 0) return static_cast<int>(cudaSuccess);
-  dma_kernel<<<1, kThreads, static_cast<size_t>(bytes),
+  const int n4 = static_cast<int>(n / 4);
+  if (n4 == 0) return static_cast<int>(cudaSuccess);
+  dma_kernel<<<(n4 + kDmaThreads - 1) / kDmaThreads, kDmaThreads, 0,
                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), row0, rows, D);
+      reinterpret_cast<const float4*>(static_cast<const float*>(x)
+                                      + static_cast<size_t>(row0) * D),
+      static_cast<float4*>(out), n4);
   return static_cast<int>(cudaGetLastError());
 }

@@ -113,8 +113,11 @@ __device__ __forceinline__ void store_row(__nv_bfloat16* out,
   }
 }
 
+// K1's tile
+using VolumeTile = Tile<8, 8, 4>;
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(VolumeTile::kThreads)
 volume_accum_kernel(const T* __restrict__ feats,       // [V, H, W, C]
                     const float* __restrict__ proj,    // [V, 3, 4]
                     const uint8_t* __restrict__ view_valid,  // [V]
@@ -123,15 +126,14 @@ volume_accum_kernel(const T* __restrict__ feats,       // [V, H, W, C]
                     uint8_t* __restrict__ valid,       // [X, Y, Z]
                     int V, int H, int W, Grid g) {
   extern __shared__ __align__(16) unsigned char smem[];
-  int3 lo, hi;
-  const int n_act = tile_views(proj, view_valid, V, H, W, g, smem, &lo, &hi);
-  const float* s_proj = tile_projections(smem);
-  const int* s_act = tile_active(smem, V);
+  using Tl = VolumeTile;
+  const TileViews tv = tile_views<Tl, false>(proj, view_valid, V, H, W, g,
+                                             smem);
   const int tid = threadIdx.x;
 
   // this thread's voxel: z fastest inside the tile
-  const int vx = lo.x + tid / (kTileY * kTileZ),
-            vy = lo.y + (tid / kTileZ) % kTileY, vz = lo.z + tid % kTileZ;
+  const int vx = tv.lo.x + tid / (Tl::Y * Tl::Z),
+            vy = tv.lo.y + (tid / Tl::Z) % Tl::Y, vz = tv.lo.z + tid % Tl::Z;
   const bool mine = vx < g.X && vy < g.Y && vz < g.Z;
   const float x = centre(vx, g.voxel_size, g.ox);
   const float y = centre(vy, g.voxel_size, g.oy);
@@ -144,9 +146,9 @@ volume_accum_kernel(const T* __restrict__ feats,       // [V, H, W, C]
   float cnt = 0.f;
   // each view that is not culled: project the voxel and add the row it
   // lands on
-  for (int a = 0; a < n_act; ++a) {
-    const int v = s_act[a];
-    const float* P = s_proj + 12 * v;
+  for (int a = 0; a < tv.n; ++a) {
+    const int v = tv.act[a];
+    const float* P = tv.proj + 12 * v;
     int px, py;
     if (mine && project(P, x, y, z, H, W, &px, &py)) {
       add_row(feats + v * view_stride + (static_cast<size_t>(py) * W + px)
@@ -168,16 +170,16 @@ template <typename T>
 int launch(const void* feats, const void* proj, const void* view_valid,
            void* out, void* count, void* valid, int V, int H, int W,
            const Grid& g, cudaStream_t s) {
-  const int tiles = n_tiles(g);
+  const int tiles = n_tiles<VolumeTile>(g);
   if (tiles == 0) return static_cast<int>(cudaSuccess);
-  const size_t shmem = tile_shared_bytes(V);
+  const size_t shmem = tile_shared_bytes<false>(V);
   if (shmem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         volume_accum_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(shmem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  volume_accum_kernel<T><<<tiles, kThreads, shmem, s>>>(
+  volume_accum_kernel<T><<<tiles, VolumeTile::kThreads, shmem, s>>>(
       static_cast<const T*>(feats), static_cast<const float*>(proj),
       static_cast<const uint8_t*>(view_valid), static_cast<T*>(out),
       static_cast<float*>(count), static_cast<uint8_t*>(valid), V, H, W, g);

@@ -16,14 +16,15 @@ channels-last: features [V, H, W, C], volume [X, Y, Z, C].
 The volume is differentiable in the features through ``VolumeAccum``, on
 both devices: its backward (the JAX package's custom VJP
 ``_accum_core_bwd`` after the mean's division) is the kernel
-``csrc/volume_accum_bwd.cu`` on a CUDA tensor and
+``csrc/volume_accum_bwd.cu`` (each tile's pairs merged in shared memory
+before they leave as atomics) on a CUDA tensor and
 ``volume_accum_bwd_plain`` on a CPU tensor.  Projections, view flags and
 the origin get no gradient: camera geometry is data.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -31,7 +32,10 @@ from cnrma_torch.ops import _build
 
 VOLUME_ACCUM = _build.LaunchCounter()
 VOLUME_ACCUM_BWD = _build.LaunchCounter()
-MAX_VIEWS = 1024          # the kernel keeps 53 B per view in shared memory
+MAX_VIEWS = 1024          # the kernels keep 53-69 B per view in shared memory
+# K1b's voxel tile (csrc/volume_accum_bwd.cu, BwdTile): its pairs are
+# merged per (tile, view, pixel) before they leave the block
+K1B_TILE = (8, 8, 4)
 
 
 def _grid_axes(voxel_dim: Sequence[int], voxel_size: float,
@@ -183,12 +187,15 @@ def volume_accum_bwd_cuda(projections: torch.Tensor, g_mean: torch.Tensor,
                           cnt: torch.Tensor, view_valid: torch.Tensor,
                           feat_hw: Tuple[int, int],
                           voxel_dim: Sequence[int], voxel_size: float,
-                          origin: Sequence[float], dtype: torch.dtype
+                          origin: Sequence[float], dtype: torch.dtype,
+                          direct: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """The ``csrc/volume_accum_bwd.cu`` kernel (K1b); same contract as
     ``volume_accum_bwd_plain``.  The kernel sums in fp32 with atomics, in
     an order that changes from run to run; the result is cast to
-    ``dtype``.  Raises on inputs the kernel does not take."""
+    ``dtype``.  Where ``direct`` is given (one int64 on the card), the
+    kernel adds to it the (voxel, view) pairs that skipped its
+    shared-memory window.  Raises on inputs the kernel does not take."""
     H, W = feat_hw
     V, C = projections.shape[0], g_mean.shape[-1]
     dev = g_mean.device
@@ -201,11 +208,16 @@ def volume_accum_bwd_cuda(projections: torch.Tensor, g_mean: torch.Tensor,
     count = cnt.to(device=dev, dtype=torch.float32).contiguous()
     out = torch.empty(V, H, W, C, dtype=torch.float32, device=dev)
     org = [float(o) for o in origin]
+    if direct is not None and (direct.dtype != torch.int64
+                               or direct.numel() != 1
+                               or direct.device != dev):
+        raise ValueError("direct must be one int64 on the cotangent's device")
     _build.launch("cnrma_volume_accum_bwd", VOLUME_ACCUM_BWD, dev,
                   g_mean.data_ptr(), count.data_ptr(), proj.data_ptr(),
                   ok.data_ptr(), out.data_ptr(), V, H, W, C, *voxel_dim,
                   float(voxel_size), *org,
-                  int(g_mean.dtype == torch.bfloat16))
+                  int(g_mean.dtype == torch.bfloat16),
+                  None if direct is None else direct.data_ptr())
     return out if dtype == torch.float32 else out.to(dtype)
 
 

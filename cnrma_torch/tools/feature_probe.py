@@ -15,7 +15,8 @@ on the probe's inputs and compared exactly with the probe's ``want``:
     onehot     tab[idx] as fp32 from a bf16 table, a direct row gather
                (16-byte loads of 8 bf16); exact against the bf16-rounded
                table
-    dma        rows 8-15 of [64, 128] by a bulk asynchronous copy, doubled
+    dma        rows 8-15 of [64, 128], each thread's 16 bytes copied into
+               shared memory by cp.async, doubled
 
 On a CPU tensor each runs its plain torch version instead.  ``empty_cuda``
 launches an empty kernel, whose device time is the least a launch takes.
@@ -45,7 +46,6 @@ LAUNCHES = {name: _build.LaunchCounter() for name in NAMES}
 EMPTY = _build.LaunchCounter()
 _TPU_LINE = dict(basic=57, dot=67, dyn_slice=77, prefetch=95, alias=110,
                  onehot=126, dma=143)
-DMA_MAX_BYTES = 47 * 1024  # the dma kernel's buffer, without opting in
 
 
 def _f32(x: torch.Tensor, what: str) -> torch.Tensor:
@@ -185,17 +185,18 @@ def dma_plain(x, row0: int, rows: int):
 
 
 def dma_cuda(x, row0: int, rows: int):
-    """``2 x[row0 : row0 + rows]`` through one bulk asynchronous copy into
-    shared memory (16-byte aligned source, at most 47 KB)."""
+    """``2 x[row0 : row0 + rows]``, each 16-byte piece copied into shared
+    memory by an asynchronous copy (``cp.async``) and doubled there: the
+    slice must start on a 16-byte boundary and be a multiple of 16
+    bytes."""
     _f32(x, "x")
-    if x.dim() != 2 or row0 < 0 or row0 + rows > x.shape[0]:
+    if x.dim() != 2 or row0 < 0 or rows < 0 or row0 + rows > x.shape[0]:
         raise ValueError("dma takes rows of a 2-D x")
     D = x.shape[1]
-    nbytes = rows * D * 4
-    if (x.data_ptr() + row0 * D * 4) % 16 or nbytes % 16 \
-            or nbytes > DMA_MAX_BYTES:
+    if (x.data_ptr() + row0 * D * 4) % 16 or rows * D % 4 \
+            or rows * D >= 2 ** 33:
         raise ValueError("dma copies a 16-byte aligned slice of a multiple "
-                         f"of 16 bytes, at most {DMA_MAX_BYTES}")
+                         "of 16 bytes, under 2**31 pieces")
     out = torch.empty(rows, D, dtype=torch.float32, device=x.device)
     _launch("dma", x.device, x.data_ptr(), out.data_ptr(), x.shape[0], row0,
             rows, D)

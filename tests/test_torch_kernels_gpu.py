@@ -70,7 +70,8 @@ def _volume_bwd_check(cuda, dtype, proj, feats, valid, dim, vs, origin,
     within 1e-5 of the largest gradient in fp32 (the kernel's atomics sum
     in an order that changes from run to run), and within one bf16 ulp
     more in bf16; then ``VolumeAccum``'s gradient on the card against the
-    plain one."""
+    plain one.  Returns the (voxel, view) pairs and those that skipped the
+    kernel's shared-memory window."""
     p = torch.from_numpy(proj).to(cuda)
     f = feats.to(cuda, dtype)
     ok = valid.to(cuda)
@@ -78,7 +79,8 @@ def _volume_bwd_check(cuda, dtype, proj, feats, valid, dim, vs, origin,
     g = torch.from_numpy(np.random.RandomState(seed).randn(*dim, 32).astype(
         np.float32)).to(cuda, dtype)
     args = (p, g, cnt, ok, tuple(f.shape[1:3]), dim, vs, origin, dtype)
-    got = bp.volume_accum_bwd_cuda(*args)
+    direct = torch.zeros(1, dtype=torch.int64, device=cuda)
+    got = bp.volume_accum_bwd_cuda(*args, direct=direct)
     want = bp.volume_accum_bwd_plain(*args)
     torch.cuda.synchronize()
     assert got.dtype == want.dtype == dtype and got.shape == f.shape
@@ -93,24 +95,42 @@ def _volume_bwd_check(cuda, dtype, proj, feats, valid, dim, vs, origin,
     vol, _ = bp.accumulate_views(p, x, ok, dim, vs, origin)
     vol.backward(g)
     assert bool(((x.grad.float() - want.float()).abs() <= tol).all())
+    return float(cnt.sum()), int(direct.item())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", ["ring", "ragged", "behind"])
+@pytest.mark.parametrize("case", ["ring", "ragged", "behind", "inside",
+                                  "far"])
 def test_volume_backward_kernel_matches_plain(cuda, dtype, case):
     """K1b: a ring of views with one invalid; odd shapes (a grid and
     feature maps that are no multiple of the tile or of 16); a camera
-    turned round, whose voxels lie behind it."""
-    vs, origin = 0.3, (0.0, 0.0, 0.0)
-    views, h, w, dim = {"ring": (5, 24, 32, (16, 16, 8)),
-                        "ragged": (3, 17, 23, (21, 13, 11)),
-                        "behind": (4, 30, 40, (20, 20, 12))}[case]
+    turned round, whose voxels lie behind it; cameras inside a grid of
+    10 cm voxels, so that tiles near them cross the camera plane or cover
+    more pixels than the window (the direct path); a 12x16 feature map
+    seen from 3 m by a grid of 2 cm voxels, about 30,000 voxels on a few
+    pixels (the window path, merging many pairs a row)."""
+    origin = (0.0, 0.0, 0.0)
+    views, h, w, dim, vs = {"ring": (5, 24, 32, (16, 16, 8), 0.3),
+                            "ragged": (3, 17, 23, (21, 13, 11), 0.3),
+                            "behind": (4, 30, 40, (20, 20, 12), 0.3),
+                            "inside": (4, 60, 80, (80, 80, 16), 0.1),
+                            "far": (3, 12, 16, (32, 32, 32), 0.02)}[case]
     proj, feats = _ring_scene(views, h, w, dim, vs, seed=2)
     valid = torch.ones(views, dtype=torch.bool)
     valid[1] = False
     if case == "behind":
         proj[0] = -proj[0]
-    _volume_bwd_check(cuda, dtype, proj, feats, valid, dim, vs, origin)
+    if case == "inside":
+        eye = [np.linalg.solve(p[:, :3], -p[:, 3]) for p in proj]
+        assert all((0 < e).all() and (e < np.array(dim) * vs).all()
+                   for e in eye)
+    pairs, direct = _volume_bwd_check(cuda, dtype, proj, feats, valid, dim,
+                                      vs, origin)
+    assert 0 <= direct <= pairs
+    if case == "inside":
+        assert direct > 0
+    if case == "far":
+        assert direct == 0 and pairs > 100 * h * w
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -382,6 +402,28 @@ def test_onehot_kernel_edges(cuda, M, R, D, offset):
     torch.cuda.synchronize()
     assert got.shape == (M, D)
     assert torch.equal(got, feature_probe.onehot_plain(idx, tab))
+
+
+@pytest.mark.parametrize("R,D,row0,rows", [
+    (64, 128, 8, 8),             # the probe's: one block of 256 pieces
+    (100, 128, 3, 94),           # 47 KB, the old form's most
+    (50, 20, 7, 13),             # 65 pieces: no multiple of 256 x 16 B
+    (9, 4, 0, 1),                # one piece
+    (4096, 128, 1, 4000),        # 2 MB: many blocks
+], ids=["probe", "47KB", "65_pieces", "one_piece", "2MB"])
+def test_dma_kernel_offsets_and_sizes(cuda, R, D, row0, rows):
+    """dma at several row offsets and sizes, equal to 2 x (tolerance 0);
+    a slice that starts off a 16-byte boundary is refused."""
+    rng = np.random.RandomState(R + D + row0)
+    x = torch.from_numpy(rng.randn(R, D).astype(np.float32)).to(cuda)
+    before = feature_probe.LAUNCHES["dma"].launches
+    got = feature_probe.dma_cuda(x, row0, rows)
+    torch.cuda.synchronize()
+    assert feature_probe.LAUNCHES["dma"].launches == before + 1
+    assert torch.equal(got, feature_probe.dma_plain(x, row0, rows))
+    shifted = x.reshape(-1)[1:1 + (R - 1) * D].view(R - 1, D)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        feature_probe.dma_cuda(shifted, row0, rows)
 
 
 @pytest.mark.parametrize("name", feature_probe.NAMES)

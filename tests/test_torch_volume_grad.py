@@ -4,7 +4,8 @@ package's ``accumulate_views``, fp32 on the CPU, dense path
 (``tile=0``, ``view_chunk=1``).
 
 The scenes hold an invalid view, voxels behind every camera and voxels no
-view sees, so the backward must send nothing from them.  Both sides scatter
+view sees, so the backward must send nothing from them; one puts the
+cameras inside the grid.  Both sides scatter
 ``g / cnt`` per view in fp32, the port with ``index_add_`` and JAX with
 ``.at[].add``, in the same voxel order: the gradients agree within 1e-6.
 """
@@ -40,11 +41,20 @@ def _jax_grad(proj, feats, valid, dim, vs, origin, g):
     return np.asarray(vol), np.asarray(vjp(jnp.asarray(g))[0])
 
 
+# cameras inside the grid (7.8 x 7.8 x 2.4 m around a ring of 3 m), the
+# geometry where K1b's tiles cross the camera plane
+INSIDE = (3, 4, 12, 16, (26, 26, 8))
+
+
 @pytest.mark.parametrize("seed,views,h,w,dim", [
     (0, 5, 24, 32, (20, 16, 12)), (1, 3, 12, 16, (16, 16, 8)),
-    (2, 4, 9, 13, (27, 7, 5))])
+    (2, 4, 9, 13, (27, 7, 5)), INSIDE])
 def test_backward_matches_jax_vjp(seed, views, h, w, dim):
     proj, feats, valid, g, origin = _case(seed, views, h, w, dim)
+    if (seed, views, h, w, dim) == INSIDE:
+        eyes = [np.linalg.solve(p[:, :3], -p[:, 3]) for p in proj[1:]]
+        extent = np.array(dim) * 0.3 + np.array(origin)
+        assert all((origin < e).all() and (e < extent).all() for e in eyes)
     jvol, jgrad = _jax_grad(proj, feats, valid, dim, 0.3, origin, g)
     x = torch.from_numpy(feats).requires_grad_()
     vol, ok = tbp.accumulate_views(torch.from_numpy(proj), x,
