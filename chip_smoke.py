@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain torch version at the full ScanNet shapes,
-drives the CN-RMA test-mode forward, the test CLI and the train CLI at full
-width, and checks small inputs against the CPU reference path.
+drives the CN-RMA test-mode forward, the test CLI, the train CLI and the
+three-stage training recipe at full width, and checks small inputs against
+the CPU reference path.
 
     python3 chip_smoke.py
 
@@ -67,6 +68,26 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
      step, all finite; K1, K1b and K2 once a step; one backward of the
      reconstruction losses alone must reach the 2D tower; the test CLI on
      one scene from the checkpoint written.
+  6f. the three-stage recipe (``doc/train_val.md``) on two synthetic
+     ScanNet scenes (60 frames of 1296x968 JPEG) written under ``build/``:
+     stage 1, the train CLI on ``configs/atlas_recon_scannet.py`` for 3
+     steps at its full width (50 views of 480x640, the 160x160x64 grid,
+     ``recon_random`` crops, bf16, Adam) from the CLI's default
+     initialisation, with K1 and K1b once a step and the missing R-50
+     reported as 0 tensors loaded; K1b against its plain version at stage
+     1's shape (the reader's rotated crop, bf16, phase 6c's tolerance), its
+     time and pairs off its window; the stage-1 checkpoint through the
+     test CLI (the config's 256x256x96 test grid, views cut from 500 to 50)
+     and ``evaluate_mesh`` against the scene's GT mesh (finite metrics, a
+     metrics file); the stage-2.1 dump (the test CLI on
+     ``configs/scannet_middle.py`` from the stage-1 checkpoint, two scenes
+     at full width, K1 and K2 once a scene), each dump held against this
+     process's forward of the checkpoint; stage 2, the train CLI on
+     ``configs/fcaf3d_middle_scannet.py`` for 3 steps at 500,000 points a
+     scene, on synthetic dumps of 600,000 points on each room's surface and
+     again on the 2.1 dumps that are not empty; ``combine_models`` of the
+     two checkpoints, every tensor bit for bit; one stage-3 step from the
+     merged file with finite losses.
   7. probes: first the dot kernel on random integers in [-4, 4] at the
      probe's 128x256x128 (exact in fp32, tolerance 0; the probe's own
      all-ones input cannot see a permuted row or column); then the three
@@ -878,24 +899,58 @@ def volume_bwd_args(dev, dtype) -> tuple:
     """K1b's arguments at the training shape: 40 views of [120, 160, 32]
     features (seed 0) on a ring around the 192x192x80 grid, one view left
     out; K1's count for them; a gaussian cotangent (seed 1) in ``dtype``."""
-    from cnrma_torch.ops import backproject as bp
     from cnrma_torch.synthetic import ring_projections
     c = TRAIN_FULL
-    v, h, w = c["views"], c["h"] // 4, c["w"] // 4
+    v = c["views"]
     proj = torch.from_numpy(ring_projections(
         v, c["h"], c["w"], c["voxel_dim"], c["voxel_size"])).to(dev)
-    proj[:, :2, :] /= 4
-    feats = torch.rand(v, h, w, 32, generator=torch.Generator(
-        device=dev).manual_seed(0), device=dev).to(dtype)
     view_valid = torch.ones(v, dtype=torch.bool, device=dev)
     view_valid[v // 2] = False
+    return volume_bwd_args_at(dev, dtype, proj, view_valid, c["voxel_dim"],
+                              c["voxel_size"], c["h"], c["w"])
+
+
+def volume_bwd_args_at(dev, dtype, proj, view_valid, voxel_dim, voxel_size,
+                       h, w) -> tuple:
+    """K1b's arguments for full-resolution projections [V, 3, 4] of
+    ``h`` x ``w`` images and their view flags: features at stride 4
+    (uniform, seed 0), K1's count for them over ``voxel_dim`` voxels at
+    the origin, a gaussian cotangent (seed 1), in ``dtype``."""
+    from cnrma_torch.ops import backproject as bp
+    proj = proj.clone()
+    proj[:, :2, :] /= 4
+    v, h, w = proj.shape[0], h // 4, w // 4
+    feats = torch.rand(v, h, w, 32, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev).to(dtype)
     origin = (0.0, 0.0, 0.0)
-    _, cnt, _ = bp.volume_accum_cuda(proj, feats, view_valid, c["voxel_dim"],
-                                     c["voxel_size"], origin)
-    g = torch.randn(*c["voxel_dim"], 32, generator=torch.Generator(
+    _, cnt, _ = bp.volume_accum_cuda(proj, feats, view_valid, voxel_dim,
+                                     voxel_size, origin)
+    g = torch.randn(*voxel_dim, 32, generator=torch.Generator(
         device=dev).manual_seed(1), device=dev).to(dtype)
-    return (proj, g, cnt, view_valid, (h, w), c["voxel_dim"],
-            c["voxel_size"], origin, dtype)
+    return (proj, g, cnt, view_valid, (h, w), tuple(voxel_dim), voxel_size,
+            origin, dtype)
+
+
+def check_volume_bwd(args, what: str) -> dict:
+    """K1b against its plain version on ``args`` within ``K1B_TOL`` of the
+    largest gradient (plus one bf16 ulp in bf16); raises beyond it.
+    Returns the error, its tolerance's name and the largest gradient."""
+    from cnrma_torch.ops import backproject as bp
+    dtype = args[-1]
+    got = bp.volume_accum_bwd_cuda(*args)
+    want = bp.volume_accum_bwd_plain(*args)
+    torch.cuda.synchronize()
+    scale = float(want.float().abs().max())
+    err = (got.float() - want.float()).abs()
+    tol = K1B_TOL * scale + (0.0 if dtype == torch.float32
+                             else 2.0 ** -7 * want.float().abs())
+    tol_name = ("1e-5 of the largest gradient" if dtype == torch.float32
+                else "1e-5 of the largest gradient + one bf16 ulp")
+    if got.dtype != dtype or scale == 0 or not bool((err <= tol).all()):
+        raise AssertionError(f"volume backward kernel ({what}): error "
+                             f"{err.max().item()} beyond {tol_name} "
+                             f"({dtype}, largest gradient {scale})")
+    return dict(err=err.max().item(), tol_name=tol_name, scale=scale)
 
 
 def volume_bwd_work(args) -> tuple:
@@ -964,35 +1019,26 @@ def phase_volume_backward(dev) -> dict:
     row = None
     for dtype in (torch.bfloat16, torch.float32):
         args = volume_bwd_args(dev, dtype)
-        got = bp.volume_accum_bwd_cuda(*args)
-        want = bp.volume_accum_bwd_plain(*args)
-        torch.cuda.synchronize()
-        scale = float(want.float().abs().max())
-        err = (got.float() - want.float()).abs()
-        tol = K1B_TOL * scale + (0.0 if dtype == torch.float32
-                                 else 2.0 ** -7 * want.float().abs())
-        tol_name = ("1e-5 of the largest gradient" if dtype == torch.float32
-                    else "1e-5 of the largest gradient + one bf16 ulp")
-        if got.dtype != dtype or scale == 0 or not bool((err <= tol).all()):
-            raise AssertionError(f"volume backward kernel: error "
-                                 f"{err.max().item()} beyond {tol_name} "
-                                 f"({dtype}, largest gradient {scale})")
+        c = check_volume_bwd(args, "training shape")
+        err, scale, tol_name = c["err"], c["scale"], c["tol_name"]
         ms = time_ms(lambda: bp.volume_accum_bwd_cuda(*args), dev)
         plain_ms = time_ms(lambda: bp.volume_accum_bwd_plain(*args), dev,
                            reps=3)
         nbytes, ops, pairs = volume_bwd_work(args)
-        row = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    **bound(nbytes, ops), library_ms=None)
         note = ""
         if dtype == torch.float32:
             library = index_add_library(args)
-            lib_err = float((library().reshape(got.shape) - want).abs().max())
+            want = bp.volume_accum_bwd_plain(*args)
+            lib_err = float((library().reshape(want.shape) - want)
+                            .abs().max())
             row["library_ms"] = time_ms(library, dev)
             note = (f", index_add_ {row['library_ms']:.4f} ms (max|err| "
                     f"{lib_err:.3g})")
             del library
-        log(f"[volume bwd] {str(dtype)[6:]}: max|err| {err.max().item():.3g}"
-            f" = {err.max().item() / scale:.3g} of the largest gradient "
+        log(f"[volume bwd] {str(dtype)[6:]}: max|err| {err:.3g}"
+            f" = {err / scale:.3g} of the largest gradient "
             f"{scale:.4g} (tol {tol_name}); (voxel, view) pairs {pairs:.0f}; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms{note}; bound "
             f"{row['bound_ms']:.4f} ms by {row['bound_by']}")
@@ -1004,7 +1050,7 @@ def phase_volume_backward(dev) -> dict:
                 f"pixel) rows {rows} for {pairs:.0f} pairs ({pairs / rows:.2f}"
                 f" pairs a row); pairs that skipped the window "
                 f"{int(direct.item())}")
-        del args, got, want, err, tol
+        del args
         torch.cuda.empty_cache()
     return row
 
@@ -1366,6 +1412,340 @@ def phase_train_cli(dev) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+STAGE1_CONFIG = "configs/atlas_recon_scannet.py"
+MIDDLE_CONFIG = "configs/scannet_middle.py"
+STAGE2_CONFIG = "configs/fcaf3d_middle_scannet.py"
+STAGE1_TEST_VIEWS = 50      # the Atlas config tests on 500 views
+
+
+class _Tee(io.StringIO):
+    """Standard output kept as well as shown."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out = out
+
+    def write(self, text):
+        self.out.write(text)
+        return super().write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _counts(counters: dict) -> dict:
+    return {name: c.launches for name, c in counters.items()}
+
+
+def _run_train_cli(argv, counters, steps: int, tag: str):
+    """``python -m cnrma_torch.tools.train`` with ``argv``, the launch
+    counts set to 0 just before it; logs each step and checks ``steps``
+    steps with finite losses.  Returns the records, the last checkpoint,
+    the launches and the CLI's standard output."""
+    from cnrma_torch.tools import train as train_cli
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        records, ckpt = train_cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = _counts(counters)
+    log(f"[{tag}] {len(records)} steps in {wall:.2f} s; launches {launches}")
+    for r in records:
+        log(f"[{tag}] step {r['step']}: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in r["log_vars"].items())
+            + f"; step {r['step_s']:.3f} s, read {r['load_s']:.3f} s, "
+            f"waited {r['wait_s']:.3f} s, peak memory "
+            f"{r['peak_gib']:.2f} GiB; stages (CUDA events, ms) "
+            + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
+                r["stages_ms"].items(), key=lambda kv: -kv[1]))
+            + f", sum {sum(r['stages_ms'].values()):.1f}")
+    if len(records) != steps or not all(
+            np.isfinite(v) for r in records for v in r["log_vars"].values()):
+        raise AssertionError(f"[{tag}] the train CLI must take {steps} "
+                             f"steps with finite losses and gradient norms")
+    return records, ckpt, launches, tee.getvalue()
+
+
+def _stage1_volume_bwd(dev, cfg, data: str, ann: str) -> None:
+    """K1b at stage 1's shape: the projections of the stage-1 reader's
+    first sample (a random z-rotation and crop of the room, 50 views, the
+    160x160x64 grid), against its plain version at phase 6c's tolerance,
+    in stage 1's bf16 and in fp32; its time beside the plain version's
+    and, in fp32, ``index_add_``'s; the pairs that skipped its window."""
+    from cnrma_torch.core.builder import build_dataset
+    from cnrma_torch.ops import backproject as bp
+    cfg.merge_from_options({"data.train.data_root": data,
+                            "data.train.ann_file": ann})
+    sample = build_dataset(cfg, "train", seed=0)[0]
+    proj = torch.from_numpy(sample["projection"]).to(dev)
+    valid = torch.from_numpy(sample["view_valid"]).to(dev)
+    h, w = sample["imgs"].shape[1:3]
+    angle = math.degrees(math.atan2(float(sample["projection"][0, 1, 0]),
+                                    float(sample["projection"][0, 0, 0])))
+    log(f"[stage 1] K1b at stage 1's shape: {int(valid.sum())} views of "
+        f"[{h // 4}, {w // 4}, 32], {tuple(cfg.model.voxel_dim_train)} "
+        f"voxels, crop offset {np.round(sample['offset'], 3).tolist()}, "
+        f"view 0's projection turned {angle:.1f} deg")
+    for dtype in (torch.bfloat16, torch.float32):
+        args = volume_bwd_args_at(dev, dtype, proj, valid,
+                                  tuple(cfg.model.voxel_dim_train),
+                                  cfg.model.voxel_size, h, w)
+        c = check_volume_bwd(args, "stage 1's shape")
+        ms = time_ms(lambda: bp.volume_accum_bwd_cuda(*args), dev)
+        plain_ms = time_ms(lambda: bp.volume_accum_bwd_plain(*args), dev,
+                           reps=3)
+        note = ""
+        if dtype == torch.float32:
+            library = index_add_library(args)
+            note = f", index_add_ {time_ms(library, dev):.4f} ms"
+            del library
+        nbytes, ops, pairs = volume_bwd_work(args)
+        direct = torch.zeros(1, dtype=torch.int64, device=dev)
+        bp.volume_accum_bwd_cuda(*args, direct=direct)
+        log(f"[stage 1] K1b {str(dtype)[6:]}: max|err| {c['err']:.3g} = "
+            f"{c['err'] / c['scale']:.3g} of the largest gradient (tol "
+            f"{c['tol_name']}); kernel {ms:.4f} ms, plain {plain_ms:.3f} "
+            f"ms{note}; bound {bound(nbytes, ops)['bound_ms']:.4f} ms; "
+            f"(voxel, view) pairs {pairs:.0f}, pairs that skipped the "
+            f"window {int(direct.item())} "
+            f"({int(direct.item()) / max(pairs, 1):.1%})")
+        del args
+        torch.cuda.empty_cache()
+
+
+def _gt_meshes(dev, data: str, scenes, out: str) -> None:
+    """Each scene's GT mesh, ``{out}/{scene}.ply``: the marching-cubes
+    surface of its ``tsdf_04``."""
+    from cnrma_torch.geometry.tsdf import TSDF
+    from cnrma_torch.utils.ply import write_ply_mesh
+    os.makedirs(out, exist_ok=True)
+    for scene in scenes:
+        gt = TSDF.load(os.path.join(data, "atlas_tsdf", scene, "tsdf_04.npz"))
+        verts, faces, normals = gt.get_mesh(dev)
+        write_ply_mesh(os.path.join(out, scene + ".ply"), verts, faces,
+                       vertex_normals=normals)
+
+
+def _dump_against_forward(cfg, data: str, ann: str, ckpt: str, mid: str,
+                          dev) -> list:
+    """Each scene's stage-2.1 dump held against this process's own test
+    forward of the same checkpoint (the reader at seed 0, the CLI's
+    generator seeded by the scene's index, the detector synthesized from
+    seed 0): the kept points' count must be the same and their rows
+    within 1e-5.  Returns the points a scene."""
+    from cnrma_torch.core.builder import build_dataset, build_model
+    from cnrma_torch.tools import test as test_cli
+    cfg.merge_from_options({"data.test.data_root": data,
+                            "data.test.ann_file": ann})
+    dataset = build_dataset(cfg, "test", seed=0)
+    model = build_model(cfg, mode="test")
+    test_cli.load_parameters(model, ckpt, 0, keep_missing=("detector.",))
+    model.to(dev)
+    counts = []
+    for index in range(len(dataset)):
+        sample = dataset[index]
+        batch = {k: torch.from_numpy(np.asarray(sample[k])[None]).to(dev)
+                 for k in ("imgs", "projection", "view_valid", "offset")}
+        out = model(batch, generator=torch.Generator(dev).manual_seed(index))
+        pts = out["points"]
+        v = pts.valid[0]
+        want = torch.cat([pts.xyz[0][v], pts.feats[0][v]], 1).float().cpu()
+        got = torch.from_numpy(np.load(os.path.join(
+            mid, sample["scene"] + "_vert.npy")))
+        err = (float((got - want).abs().max()) if len(want) and
+               got.shape == want.shape else 0.0)
+        log(f"[stage 2.1] {sample['scene']}: the dump holds {len(got)} "
+            f"points, this process's forward of the checkpoint "
+            f"{len(want)}; max|err| {err:.3g} (tol 1e-5)")
+        if got.shape != want.shape or err > 1e-5:
+            raise AssertionError(f"{sample['scene']}: the stage-2.1 dump is "
+                                 f"not the checkpoint's forward")
+        counts.append(len(got))
+        del out, pts, batch
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def phase_three_stages(dev) -> None:
+    """The three-stage ScanNet recipe on the card (``doc/train_val.md``),
+    on two synthetic ScanNet scenes written under ``build/``: stage 1 (the
+    train CLI on ``configs/atlas_recon_scannet.py``, 3 steps at its full
+    width: 50 views of 480x640, 160x160x64, ``recon_random``, bf16, Adam;
+    no R-50 file, so 0 pretrained tensors and the warning); K1b at stage
+    1's shape; the stage-1 checkpoint through the test CLI (its config's
+    test grid, views cut to 50) and ``evaluate_mesh`` against the GT
+    meshes; the stage-2.1 dump (the test CLI on ``configs/
+    scannet_middle.py`` from the stage-1 checkpoint, two scenes at full
+    width), held against this process's forward; stage 2 (the train CLI on
+    ``configs/fcaf3d_middle_scannet.py``, 3 steps at 500,000 points a scene,
+    on synthetic dumps and on the 2.1 dumps that are not empty); the merge,
+    bit for bit; one stage-3 step from the merged file."""
+    from cnrma_torch.core.config import Config
+    from cnrma_torch.ops.backproject import VOLUME_ACCUM, VOLUME_ACCUM_BWD
+    from cnrma_torch.ops.ray_marching import RAY_MARCH
+    from cnrma_torch.synthetic import write_point_dumps, write_scannet
+    from cnrma_torch.tools import combine_models, evaluate_mesh
+    from cnrma_torch.tools import test as test_cli
+    counters = {"volume_accum": VOLUME_ACCUM,
+                "volume_accum_bwd": VOLUME_ACCUM_BWD, "ray_march": RAY_MARCH}
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="stages_", dir="build")
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        data = os.path.join(root, "data")
+        ann = write_scannet(data, n_scenes=2, n_frames=60,
+                            ann_name="scannet_infos_train.pkl")
+        val = os.path.join(data, "scannet_infos_val.pkl")
+        shutil.copy(ann, val)
+        scenes = ["scene0000_00", "scene0001_00"]
+        cfg1 = Config.fromfile(STAGE1_CONFIG)
+        log(f"[stages] wrote 2 scenes (60 frames of 1296x968 JPEG, room "
+            f"TSDF and boxes) in {time.perf_counter() - t0:.1f} s")
+
+        # 1. stage 1, from the CLI's default initialisation (seed 0)
+        records, s1, launches, out = _run_train_cli(
+            [STAGE1_CONFIG, "--work-dir", os.path.join(root, "s1"),
+             "--max-steps", "3", "--cfg-options",
+             f"data.train.data_root={data}", f"data.train.ann_file={ann}",
+             "log_config.interval=1"], counters, 3, "stage 1")
+        pre = [ln for ln in out.splitlines() if "backbone2d.pretrained" in ln
+               or "pretrained 2D-backbone" in ln]
+        log(f"[stage 1] R-50: {pre}")
+        if not (len(pre) == 1 and "(0 tensors loaded)" in pre[0]):
+            raise AssertionError("stage 1 must say it loaded 0 R-50 "
+                                 "tensors, the file being missing")
+        if launches != {"volume_accum": 3, "volume_accum_bwd": 3,
+                        "ray_march": 0}:
+            raise AssertionError(f"each stage-1 step must launch K1 and K1b "
+                                 f"once, K2 never: {launches}")
+
+        # 2. K1b at stage 1's shape
+        _stage1_volume_bwd(dev, Config.fromfile(STAGE1_CONFIG), data, ann)
+
+        # 3. stage 1's output: the TSDF and mesh, scored against GT meshes
+        res1 = os.path.join(root, "res1")
+        log(f"[stage 1] test CLI on {scenes[0]} at the config's test grid "
+            f"{tuple(cfg1.model.voxel_dim_test)}, views cut from "
+            f"{cfg1.data.test.num_frames} to {STAGE1_TEST_VIEWS}")
+        recs = test_cli.main([STAGE1_CONFIG, s1, "--max-scenes", "1",
+                              "--save-path", res1, "--cfg-options",
+                              f"data.test.data_root={data}",
+                              f"data.test.ann_file={val}",
+                              f"data.test.num_frames={STAGE1_TEST_VIEWS}"])
+        files = sorted(os.listdir(os.path.join(res1, scenes[0])))
+        if files != [scenes[0] + ".npz", scenes[0] + ".ply"]:
+            raise AssertionError(f"an Atlas scene writes its TSDF and mesh "
+                                 f"only: {files}")
+        gt = os.path.join(root, "gt_meshes")
+        _gt_meshes(dev, data, scenes[:1], gt)
+        with contextlib.redirect_stdout(io.StringIO()):
+            mean = evaluate_mesh.main(["--data_path", data, "--result_path",
+                                       res1, "--gt_path", gt])
+        metrics = os.path.join(res1, scenes[0], "metrics.json")
+        log(f"[stage 1] {scenes[0]}: forward {recs[0]['forward_s']:.3f} s, "
+            f"{recs[0]['faces']} faces; evaluate_mesh against the GT mesh: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in mean.items()))
+        if not (os.path.isfile(metrics) and set(mean) ==
+                set(evaluate_mesh.KEYS)
+                and all(math.isfinite(v) for v in mean.values())):
+            raise AssertionError("evaluate_mesh must write metrics.json with "
+                                 "finite metrics")
+
+        # 4. stage 2.1: the dump from the stage-1 checkpoint
+        cfgm = Config.fromfile(MIDDLE_CONFIG)
+        res21, mid = os.path.join(root, "res21"), os.path.join(root, "mid")
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        recs = test_cli.main([MIDDLE_CONFIG, s1, "--save-path", res21,
+                              "--middle-save-path", mid, "--cfg-options",
+                              f"data.test.data_root={data}",
+                              f"data.test.ann_file={ann}"])
+        launches = _counts(counters)
+        dim = tuple(cfgm.model.voxel_dim_test)
+        log(f"[stage 2.1] {len(recs)} scenes in "
+            f"{time.perf_counter() - t0:.2f} s at {dim}, "
+            f"{cfgm.data.test.num_frames} views; launches {launches}")
+        if launches != {"volume_accum": 2, "volume_accum_bwd": 0,
+                        "ray_march": 2}:
+            raise AssertionError(f"each dumped scene must launch K1 and K2 "
+                                 f"once: {launches}")
+        counts = _dump_against_forward(cfgm, data, ann, s1, mid, dev)
+
+        # 5. stage 2: synthetic dumps beside the scenes, then the 2.1 dumps
+        syn = os.path.join(data, "middle_points")
+        t0 = time.perf_counter()
+        write_point_dumps(data, syn, n_points=600000)
+        log(f"[stage 2] wrote synthetic dumps of 600000 points on each "
+            f"room's GT surface in {time.perf_counter() - t0:.1f} s")
+        runs = [("synthetic", syn, scenes)]
+        kept = [sc for sc, n in zip(scenes, counts) if n > 0]
+        if kept:
+            nonempty = os.path.join(root, "mid_nonempty")
+            os.makedirs(nonempty)
+            for sc in kept:
+                shutil.copy(os.path.join(mid, sc + "_vert.npy"), nonempty)
+            runs.append(("stage 2.1", nonempty, kept))
+        log(f"[stage 2] runs: " + "; ".join(
+            f"{name} dumps of {used}" for name, _, used in runs)
+            + ("" if kept else "; every stage-2.1 dump is empty, so none "
+               "trains"))
+        s2 = None
+        for name, points_dir, used in runs:
+            _, ckpt, launches, _ = _run_train_cli(
+                [STAGE2_CONFIG, "--work-dir", os.path.join(
+                    root, "s2_" + name.replace(" ", "_")), "--max-steps",
+                 "3", "--cfg-options", f"data.train.data_root={data}",
+                 f"data.train.ann_file={ann}",
+                 f"data.train.points_dir={points_dir}",
+                 "log_config.interval=1"], counters, 3,
+                f"stage 2 on {name} dumps of {', '.join(used)}")
+            if any(launches.values()):
+                raise AssertionError(f"stage 2 launches no volume or march "
+                                     f"kernel: {launches}")
+            s2 = s2 or ckpt
+
+        # 6. merge, then one stage-3 step from the merged file
+        merged = os.path.join(root, "merged.pt")
+        with contextlib.redirect_stdout(io.StringIO()):
+            state = combine_models.main(["--recon", s1, "--detector", s2,
+                                         "--output", merged])
+        written = torch.load(merged, map_location="cpu", weights_only=True)
+        a = combine_models.read_state(s1)
+        b = combine_models.read_state(s2)
+        same_a = all(_bit_equal(written[k], v) for k, v in a.items())
+        same_b = all(_bit_equal(written[k], v) for k, v in b.items())
+        log(f"[merge] {len(written)} tensors: {len(a)} from stage 1 "
+            f"bit-equal {same_a}, {len(b)} from stage 2 bit-equal {same_b}")
+        if not (same_a and same_b and len(written) == len(a) + len(b)
+                == len(state)):
+            raise AssertionError("the merged checkpoint must hold stage 1's "
+                                 "and stage 2's tensors bit for bit")
+        _, _, launches, _ = _run_train_cli(
+            [CLI_CONFIG, "--work-dir", os.path.join(root, "s3"),
+             "--load-from", merged, "--max-steps", "1", "--cfg-options",
+             f"data.train.data_root={data}", f"data.train.ann_file={ann}",
+             "log_config.interval=1"], counters, 1, "stage 3")
+        if launches != {"volume_accum": 1, "volume_accum_bwd": 1,
+                        "ray_march": 1}:
+            raise AssertionError(f"the stage-3 step must launch K1, K1b and "
+                                 f"K2 once: {launches}")
+        log(f"[stages] phase took {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def dot_integer_check(dev) -> None:
     """The dot kernel at the probe's 128x256x128 on random integers in
     [-4, 4] (seed 0): every product and sum is exact in fp32, so it must
@@ -1492,6 +1872,7 @@ def main() -> None:
     bwd = phase_volume_backward(dev)
     phase_train_reference(dev)
     train_launches = phase_train_cli(dev)
+    phase_three_stages(dev)
     probes, probe_calls = phase_probes(dev)
     kernels = [
         dict(name="volume_accum", route="cuda",

@@ -1,5 +1,6 @@
-"""ScanNet multi-view scene dataset, a copy of ``cnrma_tpu/data/scannet.py``
-for the detection space modes (``'origin'`` at test time, ``'middle'``).
+"""ScanNet multi-view scene dataset, a copy of ``cnrma_tpu/data/scannet.py``:
+the detection space modes (``'origin'`` at test time, ``'middle'``) and the
+stage-1 recon modes (``'recon_random'``, ``'recon_test'``).
 
 Reads the reference's on-disk layout unchanged
 (``datasets/scannet_dataset.py``): ``{ann_file}`` infos pkl with per-scene
@@ -9,8 +10,9 @@ per-frame extrinsic ``.txt`` + shared ``intrinsic.txt`` (axis-aligned via
 ``atlas_tsdf/{scene}/tsdf_{04,08,16}.npz``.
 
 Emits fixed-shape numpy dicts (views padded to ``num_frames``, boxes padded
-to ``max_gt_boxes``), packed as the JAX package packs them.  The stage-1
-recon space modes come with Atlas training (ROADMAP queue 1, item 9).
+to ``max_gt_boxes``), packed as the JAX package packs them.  The samples
+draw from one ``np.random.RandomState(seed)`` as the JAX reader's do, so a
+seed gives the same sample in both.
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ class AtlasScanNetDataset:
                  voxel_size: float = 0.04, select_type: str = "random",
                  voxel_dim=(192, 192, 80), space_mode: str = "middle",
                  max_gt_boxes: int = 64, image_size=(640, 480),
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None,
+                 recon_pipeline: Optional[Dict] = None):
         if pipeline is not None:
             import warnings
             warnings.warn(
@@ -62,10 +65,6 @@ class AtlasScanNetDataset:
                 "fixed reference pipeline (resize/pad, space transform, "
                 "projection build — data/transforms.py); editing the "
                 "pipeline list has NO effect", stacklevel=2)
-        if space_mode not in ("origin", "middle"):
-            raise NotImplementedError(
-                f"space_mode {space_mode!r}: the recon space modes come with "
-                "Atlas training (ROADMAP queue 1, item 9)")
         self.data_root = data_root
         self.classes = classes
         self.test_mode = test_mode
@@ -76,6 +75,7 @@ class AtlasScanNetDataset:
         self.space_mode = space_mode
         self.max_gt_boxes = max_gt_boxes
         self.image_size = tuple(image_size)
+        self.recon_pipeline = dict(recon_pipeline or {})
         self.rng = np.random.RandomState(seed)
         with open(ann_file, "rb") as f:
             self.data_infos = sorted(pickle.load(f),
@@ -144,9 +144,22 @@ class AtlasScanNetDataset:
             resized.append(im)
             res_intr.append(k)
 
-        extrinsics, tsdf_dict, boxes, offset = T.space_transform_detection(
-            extrinsics, tsdf_dict, boxes, self.voxel_dim,
-            test=self.test_mode, mode=self.space_mode)
+        # space-mode dispatch: detection crops ('middle'/'origin') vs the
+        # stage-1 recon augmentations (reference
+        # ``atlas_transforms.py:132-227``); the recon path leaves GT boxes
+        # untouched (the Atlas model has no detection branch)
+        if self.space_mode == "recon_random":
+            extrinsics, tsdf_dict, offset = T.space_transform_recon_random(
+                self.rng, extrinsics, tsdf_dict, self.voxel_dim,
+                **self.recon_pipeline)
+        elif self.space_mode == "recon_test":
+            extrinsics, tsdf_dict, offset = T.space_transform_recon_test(
+                extrinsics, tsdf_dict, self.voxel_dim)
+        else:
+            extrinsics, tsdf_dict, boxes, offset = (
+                T.space_transform_detection(
+                    extrinsics, tsdf_dict, boxes, self.voxel_dim,
+                    test=self.test_mode, mode=self.space_mode))
         projections = np.stack([
             T.projection_from(k, e)
             for k, e in zip(res_intr, extrinsics)])

@@ -1,12 +1,12 @@
-"""Host-side data pipeline transforms, the test-time pieces of
-``cnrma_tpu/data/transforms.py`` (a copy).
+"""Host-side data pipeline transforms, a copy of
+``cnrma_tpu/data/transforms.py``.
 
 Replaces the reference's mmcv pipeline stages
 (``datasets/pipelines/atlas_transforms.py`` and the space-crop part of
 ``fcaf3d_transforms.py``): image resize/pad + intrinsics rescale with PIL,
 intrinsics/pose -> projection, and the world-space transforms that crop the
-GT TSDFs to the voxel grid.  The stage-1 recon augmentations come with the
-training path.
+GT TSDFs to the voxel grid: the detection crops and the stage-1 recon
+augmentations (a random z-rotation and crop; a fixed shift at test time).
 """
 
 from __future__ import annotations
@@ -110,6 +110,58 @@ def space_transform_detection(extrinsics, tsdf_dict, gt_boxes: DepthBoxes,
     new_ext, new_tsdf = transform_space(
         extrinsics, tsdf_dict, np.linalg.inv(T), voxel_dim, origin)
     return new_ext, new_tsdf, gt_boxes, offset
+
+
+def space_transform_recon_random(rng: np.random.RandomState, extrinsics,
+                                 tsdf_dict, voxel_dim, origin=(0, 0, 0),
+                                 random_rotation=True,
+                                 random_translation=True,
+                                 padding_xy=1.5, padding_z=0.25):
+    """Random z-rotation + crop for recon pretraining
+    (``AtlasRandomTransformSpaceRecon``, ``atlas_transforms.py:132-205``)."""
+    tsdf = tsdf_dict["tsdf_gt_004"]
+    r = rng.rand() * 2 * np.pi if random_rotation else 0.0
+    R = np.array([[np.cos(r), -np.sin(r)], [np.sin(r), np.cos(r)]],
+                 np.float32)
+    span = np.array(tsdf.tsdf_vol.shape) * tsdf.voxel_size
+    o = tsdf.origin[0]
+    corners = np.array([[o[0], o[0], o[0] + span[0], o[0] + span[0]],
+                        [o[1], o[1] + span[1], o[1], o[1] + span[1]]],
+                       np.float32)
+    corners = R @ corners
+    xmin, xmax = corners[0].min(), corners[0].max()
+    ymin, ymax = corners[1].min(), corners[1].max()
+    zmin, zmax = o[2], o[2] + span[2]
+
+    start = (np.array([xmin, ymin, zmin])
+             - np.array([padding_xy, padding_xy, padding_z]))
+    end = (np.array([xmax, ymax, zmax])
+           + np.array([padding_xy, padding_xy, 0.0])
+           - np.asarray(voxel_dim) * tsdf.voxel_size)
+    t = rng.rand(3) if random_translation else 0.5
+    t = t * start + (1 - t) * end
+
+    T = np.eye(4, dtype=np.float32)
+    T[:2, :2] = R
+    T[:3, 3] = -t
+    offset = (-t).astype(np.float32)
+    new_ext, new_tsdf = transform_space(
+        extrinsics, tsdf_dict, np.linalg.inv(T), voxel_dim, origin)
+    return new_ext, new_tsdf, offset
+
+
+def space_transform_recon_test(extrinsics, tsdf_dict, voxel_dim,
+                               origin=(0, 0, 0)):
+    """Deterministic half-meter-aligned shift for recon eval
+    (``AtlasTestTransformSpaceRecon``, ``atlas_transforms.py:207-227``)."""
+    tsdf = tsdf_dict["tsdf_gt_004"]
+    shift = np.floor_divide(np.array([0.5, 0.5, 0.5]), tsdf.voxel_size)
+    offset = (tsdf.origin[0] - shift * tsdf.voxel_size).astype(np.float32)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, 3] = offset
+    new_ext, new_tsdf = transform_space(extrinsics, tsdf_dict, T,
+                                        voxel_dim, origin)
+    return new_ext, new_tsdf, offset
 
 
 def select_frames(total_ids: List, num_frames: int, select_type: str,

@@ -1,8 +1,9 @@
 """CN-RMA combined detector: 2D tower -> volume -> TSDF -> NeuS ray
 marching -> sparse FCAF3D detection; per-level top-k boxes in the test
-forward, the joint losses in the training forward.
+forward, the joint losses in the training forward.  ``Atlas`` is its
+reconstruction half alone, the stage-1 model.
 
-Port of ``cnrma_tpu/models/cn_rma.py`` (``CNRMA.__call__``,
+Port of ``cnrma_tpu/models/cn_rma.py`` (``CNRMA.__call__``, ``Atlas``,
 ``feature_transform_aug``, ``_rotate_boxes``, ``_normalize_subsample``,
 ``_gather_point_feats``).  The per-view buffers, the subsample to
 ``max_points`` and the detector capacities are the JAX package's fixed
@@ -137,6 +138,25 @@ def feature_transform_aug(points: torch.Tensor, boxes: torch.Tensor,
                                   dim=-1)
 
 
+def augment_scenes(points: torch.Tensor, boxes: torch.Tensor,
+                   config: Dict[str, Any],
+                   generator: Optional[torch.Generator] = None,
+                   aug_draws: Optional[Sequence[Dict[str, torch.Tensor]]]
+                   = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``feature_transform_aug`` (no yaw) of each scene's points [B, P, 3]
+    and GT boxes [B, M, 7], with the draws ``aug_draws`` (one
+    ``draw_feature_transform`` dict a scene) or, without them, drawn from
+    ``generator`` by the ``config`` (``FEATURE_TRANSFORM``'s keys)."""
+    scenes = []
+    for b in range(points.shape[0]):
+        draws = (aug_draws[b] if aug_draws is not None else
+                 draw_feature_transform(generator, points.device, **config))
+        scenes.append(feature_transform_aug(points[b], boxes[b], False,
+                                            draws))
+    return (torch.stack([p for p, _ in scenes]),
+            torch.stack([bx for _, bx in scenes]))
+
+
 def _normalize_subsample(flat: RayMarchPoints, max_points: int,
                          generator: Optional[torch.Generator] = None,
                          uniform: Optional[torch.Tensor] = None):
@@ -175,6 +195,8 @@ def _gather_point_feats(f_b: torch.Tensor, uv_b: torch.Tensor,
 class CNRMA(nn.Module):
     """The combined detector (reference ``RayMarching``): ``forward`` is the
     test forward, ``forward_train`` the training forward's losses."""
+
+    detection = True            # False in Atlas: no ``detector`` submodule
 
     def __init__(self, voxel_dim: Tuple[int, int, int] = (192, 192, 80),
                  voxel_size: float = 0.04, n_scales: int = 3,
@@ -221,12 +243,13 @@ class CNRMA(nn.Module):
         self.backbone3d = UNet3D(channels=(feature_dim, 64, 128, 256))
         self.tsdf_head = TSDFHead(input_channels=(feature_dim, 64, 128),
                                   n_scales=n_scales, voxel_size=voxel_size)
-        self.detector = FCAF3DDetector(
-            in_channels=feature_dim, n_classes=n_classes,
-            n_reg_outs=n_reg_outs, voxel_size=voxel_size_fcaf3d,
-            pts_threshold=pts_threshold, assigner_limit=assigner_limit,
-            assigner_topk=assigner_topk, nms_pre=nms_pre,
-            capacities=capacities, compute_dtype=compute_dtype)
+        if self.detection:
+            self.detector = FCAF3DDetector(
+                in_channels=feature_dim, n_classes=n_classes,
+                n_reg_outs=n_reg_outs, voxel_size=voxel_size_fcaf3d,
+                pts_threshold=pts_threshold, assigner_limit=assigner_limit,
+                assigner_topk=assigner_topk, nms_pre=nms_pre,
+                capacities=capacities, compute_dtype=compute_dtype)
 
     # ------------------------------------------------------------------
     def normalize_images(self, imgs: torch.Tensor) -> torch.Tensor:
@@ -304,6 +327,34 @@ class CNRMA(nn.Module):
                                               valid[i]) for i in range(b)])
         return RayPoints(xyz=xyz, feats=pf * wts[..., None], valid=valid)
 
+    def reconstruct_views(self, batch: Dict[str, Any]
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     Dict[str, torch.Tensor]]:
+        """The 2D features, the view flags (all valid unless the batch has
+        ``view_valid``) and the per-scale TSDFs of a batch."""
+        imgs = batch["imgs"]
+        view_valid = batch.get("view_valid")
+        if view_valid is None:
+            view_valid = torch.ones(imgs.shape[:2], dtype=torch.bool,
+                                    device=imgs.device)
+        feats = self.extract_2d(imgs)
+        mark("tower")
+        volume, _ = self.build_volume(feats, batch["projection"], view_valid)
+        mark("volume")
+        tsdf = self.reconstruct(volume)
+        mark("unet_head")
+        return feats, view_valid, tsdf
+
+    def recon_losses(self, tsdf: Dict[str, torch.Tensor],
+                     batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """``tsdf_loss_<key>`` against the batch's ``tsdf_list``, times
+        ``loss_weight_recon``."""
+        losses = {k: v * self.loss_weight_recon for k, v in
+                  tsdf_losses(tsdf, batch["tsdf_list"],
+                              self.tsdf_head.keys).items()}
+        mark("tsdf_loss")
+        return losses
+
     # ------------------------------------------------------------------
     @torch.no_grad()
     def forward(self, batch: Dict[str, torch.Tensor],
@@ -312,14 +363,7 @@ class CNRMA(nn.Module):
         """Test-mode forward.  Returns ``tsdf`` (the per-scale TSDFs),
         ``points`` (the detector's input cloud, offset applied) and the raw
         per-level top-k ``bboxes``/``scores``/``bbox_valid``."""
-        imgs = batch["imgs"]
-        view_valid = batch.get("view_valid")
-        if view_valid is None:
-            view_valid = torch.ones(imgs.shape[:2], dtype=torch.bool,
-                                    device=imgs.device)
-        feats = self.extract_2d(imgs)
-        volume, _ = self.build_volume(feats, batch["projection"], view_valid)
-        tsdf = self.reconstruct(volume)
+        feats, view_valid, tsdf = self.reconstruct_views(batch)
         fine = tsdf[f"scene_tsdf_{self.tsdf_head.keys[-1]}"]
         pts = self.ray_march(feats, batch["projection"], view_valid, fine,
                              generator, uniform)
@@ -346,37 +390,18 @@ class CNRMA(nn.Module):
         The draws come from ``generator`` (first the subsample's, then per
         scene the augmentation's) unless ``uniform`` and ``aug_draws``
         (one ``draw_feature_transform`` dict a scene) give them."""
-        imgs = batch["imgs"]
-        view_valid = batch.get("view_valid")
-        if view_valid is None:
-            view_valid = torch.ones(imgs.shape[:2], dtype=torch.bool,
-                                    device=imgs.device)
-        feats = self.extract_2d(imgs)
-        mark("tower")
-        volume, _ = self.build_volume(feats, batch["projection"], view_valid)
-        mark("volume")
-        tsdf = self.reconstruct(volume)
-        mark("unet_head")
-        keys = self.tsdf_head.keys
-        losses = {k: v * self.loss_weight_recon for k, v in
-                  tsdf_losses(tsdf, batch["tsdf_list"], keys).items()}
-        mark("tsdf_loss")
+        feats, view_valid, tsdf = self.reconstruct_views(batch)
+        losses = self.recon_losses(tsdf, batch)
+        fine = tsdf[f"scene_tsdf_{self.tsdf_head.keys[-1]}"]
         pts = self.ray_march(feats, batch["projection"], view_valid,
-                             tsdf[f"scene_tsdf_{keys[-1]}"].detach(),
-                             generator, uniform)
+                             fine.detach(), generator, uniform)
         mark("march")
         xyz = pts.xyz + batch["offset"][:, None, :]
         gt_boxes = batch["gt_boxes"]
         if self.use_feature_transform:
-            scenes = []
-            for b in range(xyz.shape[0]):
-                draws = (aug_draws[b] if aug_draws is not None else
-                         draw_feature_transform(generator, xyz.device,
-                                                **self.feature_transform))
-                scenes.append(feature_transform_aug(xyz[b], gt_boxes[b],
-                                                    False, draws))
-            xyz = torch.stack([p for p, _ in scenes])
-            gt_boxes = torch.stack([bx for _, bx in scenes])
+            xyz, gt_boxes = augment_scenes(xyz, gt_boxes,
+                                           self.feature_transform,
+                                           generator, aug_draws)
         mark("augment")
         level_outs = self.detector(xyz, pts.feats, pts.valid)
         mark("detector")
@@ -386,3 +411,27 @@ class CNRMA(nn.Module):
         losses.update({k: v * self.loss_weight_detection
                        for k, v in det.items()})
         return losses
+
+
+class Atlas(CNRMA):
+    """The reconstruction model of stage-1 pretraining (reference
+    ``models/atlas.py``): CNRMA's 2D tower, volume, U-Net and TSDF head, no
+    detector, so its state dict is a strict subset of CNRMA's.  Built with
+    CNRMA's reconstruction arguments; the detection ones are unused."""
+
+    detection = False
+
+    @torch.no_grad()
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None,
+                uniform: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+        """Test-mode forward: ``tsdf``, the per-scale TSDFs."""
+        return {"tsdf": self.reconstruct_views(batch)[2]}
+
+    def forward_train(self, batch: Dict[str, Any],
+                      generator: Optional[torch.Generator] = None,
+                      uniform: Optional[torch.Tensor] = None,
+                      aug_draws=None) -> Dict[str, torch.Tensor]:
+        """The training forward's losses: ``tsdf_loss_<key>`` (times
+        ``loss_weight_recon``) only; no ray march, no detector."""
+        return self.recon_losses(self.reconstruct_views(batch)[2], batch)

@@ -1,7 +1,8 @@
 """Synthetic scenes and parameters for driving the port without a dataset or
 a checkpoint: bench.py's ring of cameras, a sphere TSDF, bench.py's
-parameter recipe, and whole ScanNet scenes on disk (``write_scannet``), all
-made from a seed."""
+parameter recipe, whole ScanNet scenes on disk (``write_scannet``) and
+stage-2 point dumps of them (``write_point_dumps``), all made from a
+seed."""
 
 from __future__ import annotations
 
@@ -189,3 +190,67 @@ def write_scannet(root: str, n_scenes: int = 2, n_frames: int = 60,
     with open(ann, "wb") as f:
         pickle.dump(infos, f)
     return ann
+
+
+def room_surface_points(extent: Sequence[float], boxes: np.ndarray, n: int,
+                        rng: np.random.RandomState) -> np.ndarray:
+    """[n, 3] points drawn uniformly (by area) on the surfaces of
+    ``room_tsdf``'s room: its floor, four walls up to the room's height
+    (capped at 3 m) and the six faces of each gravity-center box [M, 6+]."""
+    ex, ey, ez = (float(e) for e in extent)
+    h = min(ez, 3.0)
+    # (axis of the plane, its coordinate, the low and high corners)
+    planes = [(2, 0.05, (0.1, 0.1), (ex - 0.1, ey - 0.1))]
+    for axis, c, lo, hi in ((0, 0.1, (0.1, 0.05), (ey - 0.1, h)),
+                            (0, ex - 0.1, (0.1, 0.05), (ey - 0.1, h)),
+                            (1, 0.1, (0.1, 0.05), (ex - 0.1, h)),
+                            (1, ey - 0.1, (0.1, 0.05), (ex - 0.1, h))):
+        planes.append((axis, c, lo, hi))
+    for cx, cy, cz, dx, dy, dz in boxes[:, :6]:
+        ctr, half = np.array([cx, cy, cz]), np.array([dx, dy, dz]) / 2
+        for axis in range(3):
+            rest = [a for a in range(3) if a != axis]
+            lo = tuple(ctr[rest] - half[rest])
+            hi = tuple(ctr[rest] + half[rest])
+            for sign in (-1, 1):
+                planes.append((axis, ctr[axis] + sign * half[axis], lo, hi))
+    area = np.array([(hi[0] - lo[0]) * (hi[1] - lo[1])
+                     for _, _, lo, hi in planes])
+    which = rng.choice(len(planes), n, p=area / area.sum())
+    u = rng.rand(n, 2)
+    pts = np.empty((n, 3), np.float32)
+    for i, (axis, c, lo, hi) in enumerate(planes):
+        m = which == i
+        rest = [a for a in range(3) if a != axis]
+        pts[m, axis] = c
+        pts[m, rest[0]] = lo[0] + u[m, 0] * (hi[0] - lo[0])
+        pts[m, rest[1]] = lo[1] + u[m, 1] * (hi[1] - lo[1])
+    return pts
+
+
+def write_point_dumps(root: str, points_dir: str, n_points: int = 600000,
+                      seed: int = 0) -> List[str]:
+    """Write a stage-2.1 dump, ``{points_dir}/{scene}_vert.npy``, for each
+    scene of ``write_scannet``'s training split
+    (``{root}/scannet_infos_train.pkl``): ``n_points`` rows
+    of xyz on the room's GT surface (``room_surface_points``, its extent
+    from the scene's ``tsdf_04``) and 32 feature columns of N(0, 1), fp32,
+    drawn from ``seed``.  Returns the paths written."""
+    rng = np.random.RandomState(seed)
+    with open(os.path.join(root, "scannet_infos_train.pkl"), "rb") as f:
+        infos = sorted(pickle.load(f), key=lambda x: x["scene"])
+    os.makedirs(points_dir, exist_ok=True)
+    paths = []
+    for info in infos:
+        scene = info["scene"]
+        with np.load(os.path.join(root, "atlas_tsdf", scene,
+                                  "tsdf_04.npz")) as z:
+            extent = np.asarray(z["tsdf"].shape) * float(z["voxel_size"])
+        boxes = np.asarray(info["annos"]["gt_boxes_upright_depth"],
+                           np.float32)
+        xyz = room_surface_points(extent, boxes, n_points, rng)
+        feats = rng.randn(n_points, 32).astype(np.float32)
+        path = os.path.join(points_dir, scene + "_vert.npy")
+        np.save(path, np.concatenate([xyz, feats], axis=1))
+        paths.append(path)
+    return paths

@@ -15,14 +15,21 @@ names, keys, dtypes and z convention:
 * with a middle path, ``{middle}/{scene}_vert.npy``: xyz and the 32 weighted
   features of the kept points (and, with a visualize path, their ``.ply``).
 
-Offline scoring is then ``python -m cnrma_torch.tools.nms_bbox`` and
-``python -m cnrma_torch.tools.evaluate_bbox``.
+An ``Atlas`` config (stage 1, ``configs/atlas_recon_scannet.py``) writes the
+TSDF and its mesh only.  Offline scoring is then ``python -m
+cnrma_torch.tools.nms_bbox`` and ``python -m cnrma_torch.tools.evaluate_bbox``
+for the boxes, ``python -m cnrma_torch.tools.evaluate_mesh`` for the mesh.
 
 ``CHECKPOINT`` is a ``.pt`` state dict of the port or a checkpoint of its
-train CLI (``cnrma_torch.tools.train``), or an ``.npz`` of a flax variable
-tree's flattened leaves (``params/...``, ``batch_stats/...``),
-loaded through ``bridge.from_flax``.  Without one the parameters are
-synthesized from ``--seed`` (``synthetic.synthesize_parameters``).
+train CLI (``cnrma_torch.tools.train``), an ``.npz`` of a flax variable
+tree's flattened leaves (``params/...``, ``batch_stats/...``), loaded
+through ``bridge.from_flax``, or a reference ``.pth`` (``convert.py``).
+Without one the parameters are synthesized from ``--seed``
+(``synthetic.synthesize_parameters``).  A checkpoint without the detector
+loads into ``CNRMA`` too (the stage-2.1 dump, ``configs/scannet_middle.py``
+from a stage-1 checkpoint): its detector tensors keep their ``--seed``
+synthesis and the CLI prints their count; any other missing or unexpected
+key fails the load.
 
 The forward runs on ``cuda:0`` unless ``--device cpu``.  A reader thread
 decodes the next scene while the device runs this one (one scene ahead at
@@ -44,9 +51,11 @@ import numpy as np
 import torch
 
 from cnrma_torch.bridge import from_flax, read_flax_npz
+from cnrma_torch.convert import read_pth, reference_state_dict
 from cnrma_torch.core.builder import build_dataset, build_model
 from cnrma_torch.core.config import Config
 from cnrma_torch.geometry.tsdf import TSDF
+from cnrma_torch.models.fcaf3d_only import FCAF3DOnly
 from cnrma_torch.synthetic import synthesize_parameters
 from cnrma_torch.utils.ply import write_ply_mesh, write_ply_points
 
@@ -59,7 +68,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("config")
     p.add_argument("checkpoint", nargs="?", default=None,
                    help=".pt state dict or train checkpoint of the port, "
-                        "or .npz of flattened flax leaves")
+                        ".npz of flattened flax leaves, or a reference "
+                        ".pth")
     p.add_argument("--save-path")
     p.add_argument("--middle-save-path")
     p.add_argument("--middle-visualize-path",
@@ -90,17 +100,41 @@ class _Head:
         return sample
 
 
+def read_parameters(checkpoint: str) -> Dict[str, torch.Tensor]:
+    """A checkpoint's state dict: an ``.npz`` of flax leaves, a reference
+    ``.pth``, or a ``.pt`` state dict or train checkpoint of the port."""
+    if checkpoint.endswith(".npz"):
+        return from_flax(read_flax_npz(checkpoint))
+    if checkpoint.endswith(".pth"):
+        return reference_state_dict(read_pth(checkpoint))
+    state = torch.load(checkpoint, map_location="cpu", weights_only=True)
+    if "model" in state and "optimizer" in state:       # a train checkpoint
+        state = state["model"]
+    return state
+
+
 def load_parameters(model: torch.nn.Module, checkpoint: Optional[str],
-                    seed: int) -> None:
+                    seed: int, keep_missing: Sequence[str] = ()) -> int:
+    """Load ``checkpoint`` into ``model``, or without one synthesize the
+    parameters from ``seed``.  Tensors the checkpoint lacks under one of
+    the ``keep_missing`` prefixes keep their synthesis from ``seed``; any
+    other missing or unexpected key, or a shape that differs, raises.
+    Returns the number of tensors kept so."""
     if checkpoint is None:
         synthesize_parameters(model, seed)
-    elif checkpoint.endswith(".npz"):
-        model.load_state_dict(from_flax(read_flax_npz(checkpoint), model))
-    else:
-        state = torch.load(checkpoint, map_location="cpu", weights_only=True)
-        if "model" in state and "optimizer" in state:   # a train checkpoint
-            state = state["model"]
-        model.load_state_dict(state)
+        return 0
+    state = read_parameters(checkpoint)
+    missing, unexpected = model.load_state_dict(state, strict=False)
+    kept = [k for k in missing if k.startswith(tuple(keep_missing))]
+    if unexpected or len(kept) != len(missing):
+        raise KeyError(f"{checkpoint}: keys the model does not have "
+                       f"{unexpected[:5]} ({len(unexpected)}); model keys "
+                       f"missing {[k for k in missing if k not in kept][:5]}"
+                       f" ({len(missing) - len(kept)})")
+    if kept:
+        synthesize_parameters(model, seed)
+        model.load_state_dict(state, strict=False)
+    return len(kept)
 
 
 def write_scene(scene: str, out: Dict[str, Any], voxel_size: float,
@@ -119,10 +153,13 @@ def write_scene(scene: str, out: Dict[str, Any], voxel_size: float,
     mesh_s = time.perf_counter() - t_mesh
     ply = os.path.join(scene_dir, scene + ".ply")
     write_ply_mesh(ply, verts, faces, vertex_normals=normals)
-    valid = out["bbox_valid"]
-    np.savez(os.path.join(scene_dir, scene + "_bbox_raw.npz"),
-             bboxes=out["bboxes"][valid], scores=out["scores"][valid])
-    if middle_path:
+    boxes = None
+    if "bboxes" in out:
+        valid = out["bbox_valid"]
+        np.savez(os.path.join(scene_dir, scene + "_bbox_raw.npz"),
+                 bboxes=out["bboxes"][valid], scores=out["scores"][valid])
+        boxes = int(valid.sum())
+    if middle_path and "xyz" in out:
         pvalid = out["point_valid"]
         vert = np.concatenate([out["xyz"][pvalid], out["feats"][pvalid]],
                               axis=1).astype(np.float32)
@@ -133,16 +170,19 @@ def write_scene(scene: str, out: Dict[str, Any], voxel_size: float,
                                           scene + "_points.ply"), vert[:, :3])
     return {"write_s": time.perf_counter() - t0, "mesh_s": mesh_s,
             "faces": int(len(faces)), "ply_bytes": os.path.getsize(ply),
-            "boxes": int(valid.sum())}
+            "boxes": boxes}
 
 
 def _host_outputs(model, out: Dict[str, Any], sample: Dict[str, Any],
                   middle: bool) -> Dict[str, Any]:
-    """Scene 0 of the forward's outputs, copied to the host."""
+    """Scene 0 of the forward's outputs, copied to the host (the TSDF;
+    with a detector the boxes and, with a middle path, the points)."""
     fine = out["tsdf"][f"scene_tsdf_{model.tsdf_head.keys[-1]}"]
-    host = {"tsdf": fine[0], "bboxes": out["bboxes"][0],
-            "scores": out["scores"][0], "bbox_valid": out["bbox_valid"][0]}
-    if middle:
+    host = {"tsdf": fine[0]}
+    if "bboxes" in out:
+        host.update(bboxes=out["bboxes"][0], scores=out["scores"][0],
+                    bbox_valid=out["bbox_valid"][0])
+    if middle and "points" in out:
         pts = out["points"]
         host.update(xyz=pts.xyz[0], feats=pts.feats[0],
                     point_valid=pts.valid[0])
@@ -175,7 +215,14 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, Any]]:
     dataset = _Head(build_dataset(cfg, "test", seed=args.seed),
                     args.max_scenes)
     model = build_model(cfg, mode="test")
-    load_parameters(model, args.checkpoint, args.seed)
+    if isinstance(model, FCAF3DOnly):
+        raise SystemExit("the test CLI runs the models that read views "
+                         "(CNRMA, Atlas); FCAF3DOnly trains on dumped points")
+    kept = load_parameters(model, args.checkpoint, args.seed,
+                           keep_missing=("detector.",))
+    if kept:
+        print(f"{args.checkpoint} holds no detector: its {kept} tensors keep "
+              f"their synthesis from --seed {args.seed}", flush=True)
     model.to(dev)
 
     # one reader thread, one scene ahead: the frame draws of the seeded
@@ -222,7 +269,8 @@ def _finish(rec: Dict[str, Any], fut) -> Dict[str, Any]:
           f"(waited {rec['wait_s']:.3f}), forward {rec['forward_s']:.3f} s, "
           f"write {rec['write_s']:.3f} s (mesh {rec['mesh_s']:.3f}), "
           f"{rec['faces']} faces, {rec['ply_bytes']} PLY bytes, "
-          f"{rec['boxes']} raw boxes", flush=True)
+          + ("no box file" if rec["boxes"] is None
+             else f"{rec['boxes']} raw boxes"), flush=True)
     return rec
 
 

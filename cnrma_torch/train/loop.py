@@ -1,6 +1,8 @@
 """The training step and the epoch loop (port of
 ``cnrma_tpu/train/loop.py``: ``total_loss``, ``make_train_step``'s step on
-one device, ``run_training`` without the mid-training evaluation).
+one device, ``run_training`` without the mid-training evaluation).  The
+step runs any of the three stages' models (``CNRMA``, ``Atlas``,
+``FCAF3DOnly``) through its ``forward_train``, on the batch keys it takes.
 
 A step: the training forward (batch statistics in the norms, which update
 their running statistics once), the backward, the optimizer's clip and
@@ -23,17 +25,21 @@ from cnrma_torch.timing import mark, stage_marks
 from cnrma_torch.train.optim import Optimizer
 from cnrma_torch.train.state import TrainState, save_checkpoint
 
+# the views of a scene (CNRMA, Atlas) or its dumped points (FCAF3DOnly),
+# and the GT boxes (``cnrma_tpu/train/loop.py:33``)
 BATCH_KEYS = ("imgs", "projection", "view_valid", "offset", "gt_boxes",
-              "gt_labels", "gt_valid")
+              "gt_labels", "gt_valid", "points", "point_feats",
+              "point_valid")
 
 
 def device_batch(batch: Dict[str, Any], device) -> Dict[str, Any]:
     """The arrays of a collated batch as tensors on ``device``; the TSDF
-    targets stay grouped under ``tsdf_list``."""
+    targets, where the batch has them, stay grouped under ``tsdf_list``."""
     out = {k: torch.from_numpy(np.asarray(batch[k])).to(device)
            for k in BATCH_KEYS if k in batch}
-    out["tsdf_list"] = {k: torch.from_numpy(np.asarray(v)).to(device)
-                        for k, v in batch["tsdf_list"].items()}
+    if batch.get("tsdf_list"):
+        out["tsdf_list"] = {k: torch.from_numpy(np.asarray(v)).to(device)
+                            for k, v in batch["tsdf_list"].items()}
     return out
 
 

@@ -1,7 +1,7 @@
 """Optimizer and learning-rate schedule from reference-style config dicts.
 
 Port of ``cnrma_tpu/train/optim.py``: the optax chain
-``clip_by_global_norm -> multi_transform({train: adamw, frozen:
+``clip_by_global_norm -> multi_transform({train: adamw | adam, frozen:
 set_to_zero})`` written out in torch, with optax's arithmetic:
 
 * the clip scales every gradient by ``max_norm / ||g||`` (as
@@ -11,12 +11,11 @@ set_to_zero})`` written out in torch, with optax's arithmetic:
   zero update, so no step and no weight decay;
 * AdamW: ``mu = 0.1 g + 0.9 mu``, ``nu = 0.001 g^2 + 0.999 nu``, bias
   corrected by ``1 - b^t``, ``u = mu_hat / (sqrt(nu_hat) + 1e-8)``,
-  plus the decoupled ``weight_decay * p``, times ``-lr(t - 1)``;
+  plus the decoupled ``weight_decay * p``, times ``-lr(t - 1)``; Adam
+  (``optax.adam``, the stage-1 Atlas config) is the same without the
+  decay, whatever ``weight_decay`` the config gives;
 * the step schedule multiplies the base rate by ``gamma`` at every
   boundary ``epoch * steps_per_epoch`` the step count has reached.
-
-The stage-3 configs use AdamW and the step schedule only; Adam (the
-stage-1 Atlas configs) comes with ROADMAP queue 1, item 9.
 
 ``torch.optim.AdamW`` and ``clip_grad_norm_`` compute other functions
 (``max_norm / (||g|| + 1e-6)``, the decay folded before the moments'
@@ -61,8 +60,8 @@ def frozen_names(model: nn.Module, prefixes: Sequence[str]) -> frozenset:
 
 
 class Optimizer:
-    """The optax chain of ``build_optimizer`` (AdamW) over named
-    parameters.
+    """The optax chain of ``build_optimizer`` (AdamW, or Adam with
+    ``weight_decay=0``) over named parameters.
 
     ``step(grads)`` takes one gradient a parameter (a missing one counts as
     zero), clips, updates the parameters in place and returns the global
@@ -135,13 +134,13 @@ def build_optimizer(optimizer_cfg: Mapping[str, Any], model: nn.Module,
                     grad_clip: Optional[float] = None,
                     frozen_prefixes: Sequence[str] = ()) -> Optimizer:
     """Reference config dict (``optimizer = dict(type='AdamW', lr=...,
-    weight_decay=...)``) -> the optimizer over ``model``'s parameters."""
+    weight_decay=...)`` or ``dict(type='Adam', lr=...)``) -> the optimizer
+    over ``model``'s parameters."""
     kind = optimizer_cfg.get("type", "AdamW")
-    if kind != "AdamW":
-        raise NotImplementedError(f"optimizer {kind!r}: the port has AdamW "
-                                  f"(Adam comes with ROADMAP queue 1, "
-                                  f"item 9)")
+    if kind not in ("AdamW", "Adam"):
+        raise ValueError(f"unsupported optimizer {kind!r}")
     return Optimizer(dict(model.named_parameters()), schedule,
-                     weight_decay=optimizer_cfg.get("weight_decay", 0.0),
+                     weight_decay=(optimizer_cfg.get("weight_decay", 0.0)
+                                   if kind == "AdamW" else 0.0),
                      max_norm=grad_clip,
                      frozen=frozen_names(model, frozen_prefixes))

@@ -133,6 +133,41 @@ def test_volume_backward_kernel_matches_plain(cuda, dtype, case):
         assert direct == 0 and pairs > 100 * h * w
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_volume_backward_kernel_at_a_rotated_stage1_crop(cuda, dtype,
+                                                         tmp_path):
+    """K1b at stage 1's shape: 10 views of [120, 160, 32] features over the
+    160x160x64 grid of ``configs/atlas_recon_scannet.py``, placed by its
+    reader's ``recon_random`` crop of a synthetic room (a random
+    z-rotation, here 140 degrees, and translation), in stage 1's bf16 and
+    in fp32."""
+    from cnrma_torch.core.builder import build_dataset
+    from cnrma_torch.core.config import Config
+    from cnrma_torch.synthetic import write_scannet
+    ann = write_scannet(str(tmp_path), n_scenes=1, n_frames=10,
+                        image_size=(640, 480),
+                        ann_name="scannet_infos_train.pkl")
+    cfg = Config.fromfile("configs/atlas_recon_scannet.py")
+    cfg.merge_from_options({"data.train.data_root": str(tmp_path),
+                            "data.train.ann_file": ann,
+                            "data.train.num_frames": "10"})
+    dataset = build_dataset(cfg, "train", seed=1)
+    rng = np.random.RandomState(1)      # the reader's draws: frames, angle
+    rng.choice(10, 10, replace=False)
+    angle = np.degrees(rng.rand() * 2 * np.pi)
+    sample = dataset[0]
+    proj = sample["projection"].copy()
+    proj[:, :2, :] /= 4
+    dim = tuple(cfg.model.voxel_dim_train)
+    assert dim == (160, 160, 64) and 20 < angle % 90 < 70
+    feats = torch.from_numpy(np.random.RandomState(3).rand(
+        10, 120, 160, 32).astype(np.float32))
+    valid = torch.from_numpy(sample["view_valid"])
+    pairs, direct = _volume_bwd_check(cuda, dtype, proj, feats, valid, dim,
+                                      cfg.model.voxel_size, (0.0, 0.0, 0.0))
+    assert pairs > 0 and 0 <= direct <= pairs
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("views,h,w,dim", [(3, 24, 32, (16, 16, 8)),
                                            (7, 60, 80, (48, 40, 24))])
