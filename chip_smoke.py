@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels,
-holds each against its plain torch version at the full ScanNet shapes,
-drives the CN-RMA test-mode forward, the test CLI, the train CLI and the
-three-stage training recipe at full width, and checks small inputs against
-the CPU reference path.
+holds each against its plain torch version at the full ScanNet and ARKit
+shapes, drives the CN-RMA test-mode forward, the test CLI, the train CLI,
+the three-stage training recipe and the ARKit yaw path at full width, and
+checks small inputs against the CPU reference path.
 
     python3 chip_smoke.py
 
@@ -88,6 +88,23 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
      again on the 2.1 dumps that are not empty; ``combine_models`` of the
      two checkpoints, every tensor bit for bit; one stage-3 step from the
      merged file with finite losses.
+  arkit. the ARKitScenes 7-DoF path on two synthetic ARKit scenes (60 PNG
+     frames of 256x192 in ARKit's ``lowres_wide`` layout, five yaw boxes a
+     room) under ``build/``: the yaw model's tiny fp32 forward GPU against
+     CPU (phase 6's tolerances, yaw compared modulo pi); the test CLI on
+     ``configs/ray_marching_arkit.py`` at its full test width (40 views of
+     480x640, 192x192x80, fp32, ``middle`` space), K1 and K2 once a scene,
+     7-column boxes and 17 scores, then the rotated ``nms_bbox`` and
+     ``evaluate_bbox --dataset arkit`` on the card (planted yaw boxes
+     exactly 1.0, the same turned by pi/2 under 1 at 0.5), rotated NMS of
+     4000 boxes of one class timed (its keep mask held against the CPU's
+     on 1000), points and boxes on a planted ball, one scene's capacity
+     lines; 3 stage-3 steps of the train CLI at full width (finite losses
+     and gradient norms, K1, K1b and K2 once a step); 3 stage-2 steps on
+     ``configs/fcaf3d_middle_arkit.py`` at 500,000 points on the rooms'
+     surfaces, each with positives for the rotated IoU loss; K1 and K2 at
+     the ARKit test shape and K1b at its training shape against their
+     plain versions, timed (their device times in phase 8).
   7. probes: first the dot kernel on random integers in [-4, 4] at the
      probe's 128x256x128 (exact in fp32, tolerance 0; the probe's own
      all-ones input cannot see a permuted row or column); then the three
@@ -102,7 +119,9 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
      function only), its library call's (``library_device_ms``: all the
      call's device work), and the launch floor (``floor_ms``, on every
      row: the device time of an empty kernel, one block of 32 threads);
-     last, because a profiler session slows the host's later launches.
+     then K1b at stage 1's shape and K1, K2 and K1b at ARKit's, beside the
+     floor; last, because a profiler session slows the host's later
+     launches.
 Every kernel row carries its bound: the larger of the bytes its function
 must move (each input read once, each output written once, counted from
 this run's data) over 3.35 TB/s and its operations over the peak rate of
@@ -659,6 +678,15 @@ def phase_reference(dev) -> None:
              "view_valid": torch.ones(1, 2, dtype=torch.bool),
              "offset": torch.zeros(1, 3)}
     uniform = torch.from_numpy(rng.rand(1, 2 * 512).astype(np.float32))
+    gpu_against_cpu(dev, model, batch, uniform, "reference")
+
+
+def gpu_against_cpu(dev, model, batch, uniform, tag: str) -> None:
+    """One tiny fp32 test forward of ``model`` on the CPU (plain versions)
+    and on the card (kernels), same parameters, batch and subsample draw:
+    TSDFs within 1e-4, the same number of kept points (at least one) and
+    of valid boxes, boxes and scores (ordered by score) within 1e-3.  A
+    yaw is compared modulo pi (a box turned by pi is the same box)."""
     ref = model(batch, uniform=uniform)
     model.to(dev)
     got = model({k: t.to(dev) for k, t in batch.items()},
@@ -676,17 +704,23 @@ def phase_reference(dev) -> None:
         return b[order], s[order]
     rb, rs = boxes(ref)
     gb, gs = boxes(got)
-    log(f"[reference] tiny fp32 scene, GPU vs CPU: tsdf max|err| "
+    log(f"[{tag}] tiny fp32 scene, GPU vs CPU: tsdf max|err| "
         f"{tsdf_err:.3g}; points {n_got} vs {n_ref}; valid boxes "
-        f"{len(gb)} vs {len(rb)}")
+        f"{len(gb)} vs {len(rb)} of {rb.shape[-1]} columns")
     if tsdf_err > 1e-4 or n_ref == 0 or n_got != n_ref or len(gb) != len(rb):
-        raise AssertionError("GPU path disagrees with the CPU reference")
-    box_err = (gb - rb).abs().max().item() if len(rb) else 0.0
+        raise AssertionError(f"[{tag}] GPU path disagrees with the CPU "
+                             f"reference")
+    diff = gb - rb
+    if diff.shape[-1] == 7:
+        diff[:, 6] = torch.remainder(diff[:, 6] + math.pi / 2,
+                                     math.pi) - math.pi / 2
+    box_err = diff.abs().max().item() if len(rb) else 0.0
     score_err = (gs - rs).abs().max().item() if len(rb) else 0.0
-    log(f"[reference] boxes max|err| {box_err:.3g}, scores max|err| "
+    log(f"[{tag}] boxes max|err| {box_err:.3g}, scores max|err| "
         f"{score_err:.3g} (tol 1e-3)")
     if box_err > 1e-3 or score_err > 1e-3:
-        raise AssertionError("GPU boxes disagree with the CPU reference")
+        raise AssertionError(f"[{tag}] GPU boxes disagree with the CPU "
+                             f"reference")
 
 
 CLI_CONFIG = "configs/ray_marching_scannet.py"
@@ -694,12 +728,18 @@ CLI_FILES = ("{s}.npz", "{s}.ply", "{s}_bbox_raw.npz")
 
 
 def _check_scene_files(save: str, middle: str, scene: str, dim,
-                       need_points: bool = True) -> dict:
+                       need_points: bool = True, box_dim: int = 6,
+                       n_classes: int = 18, overflow_ok: bool = False
+                       ) -> dict:
     """Raise unless a scene's four result files hold the right keys, shapes
-    and finite values, and it has raw boxes exactly when it has kept points
-    (the detector's top-k rows are valid where the points' voxels are);
-    ``need_points`` also asks for a non-empty cloud.  Returns the counts of
-    raw boxes and middle points."""
+    (``box_dim`` box columns, ``n_classes`` scores) and finite values, and
+    it has raw boxes exactly when it has kept points (the detector's top-k
+    rows are valid where the points' voxels are); ``need_points`` also asks
+    for a non-empty cloud.  ``overflow_ok`` lets a box row be not finite
+    where its face distances overflowed fp32 (``overflowed_rows``), and
+    only there.  Returns the counts of raw boxes, of those overflowed and
+    of middle points."""
+    from cnrma_torch.tools.overflow_survey import overflowed_rows
     d = os.path.join(save, scene)
     for f in CLI_FILES:
         if not os.path.isfile(os.path.join(d, f.format(s=scene))):
@@ -716,9 +756,20 @@ def _check_scene_files(save: str, middle: str, scene: str, dim,
             bad.append("no PLY header")
     with np.load(os.path.join(d, scene + "_bbox_raw.npz")) as z:
         b, sc = z["bboxes"], z["scores"]
-        if not (b.ndim == 2 and b.shape[1] == 6 and sc.shape == (len(b), 18)
-                and np.isfinite(b).all() and np.isfinite(sc).all()):
-            bad.append(f"boxes {b.shape}, scores {sc.shape}")
+    shaped = (b.ndim == 2 and b.shape[1] == box_dim
+              and sc.shape == (len(b), n_classes))
+    if not shaped:
+        over = None
+    elif overflow_ok and box_dim == 6:
+        over = overflowed_rows(b)
+    else:
+        over = 0 if np.isfinite(b).all() else None
+    if not (shaped and over is not None and np.isfinite(sc).all()):
+        bad.append(f"boxes {b.shape}, {int((~np.isfinite(b)).sum())} "
+                   f"values not finite"
+                   + (" (not all from overflow)" if overflow_ok else "")
+                   + f"; scores {sc.shape}, "
+                   f"{int((~np.isfinite(sc)).sum())} not finite")
     vert = np.load(os.path.join(middle, scene + "_vert.npy"))
     if not (vert.ndim == 2 and vert.shape[1] == 35
             and np.isfinite(vert).all()):
@@ -728,7 +779,8 @@ def _check_scene_files(save: str, middle: str, scene: str, dim,
     if bad:
         raise AssertionError(f"{scene}: a result file has the wrong keys, "
                              f"shapes or values: {'; '.join(bad)}")
-    return {"raw_boxes": len(b), "middle_points": len(vert)}
+    return {"raw_boxes": len(b), "overflowed": over,
+            "middle_points": len(vert)}
 
 
 def _plant_dumps(data: str, out: str, scenes, shift: bool) -> None:
@@ -749,12 +801,18 @@ def _plant_dumps(data: str, out: str, scenes, shift: bool) -> None:
                  bboxes=boxes, scores=scores)
 
 
-def _score(data: str, results: str) -> dict:
+def _score(data: str, results: str, dataset: str = "scannet") -> dict:
+    """``nms_bbox`` and ``evaluate_bbox`` on the card; the metrics, with
+    the seconds of each under ``nms_s`` and ``map_s``."""
     from cnrma_torch.tools import evaluate_bbox, nms_bbox
     with contextlib.redirect_stdout(io.StringIO()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         nms_bbox.main(["--result_path", results])
-        return evaluate_bbox.main(["--data_path", data,
-                                   "--result_path", results])
+        t1 = time.perf_counter()
+        m = evaluate_bbox.main(["--dataset", dataset, "--data_path", data,
+                                "--result_path", results])
+        return dict(m, nms_s=t1 - t0, map_s=time.perf_counter() - t1)
 
 
 def phase_test_cli(dev) -> None:
@@ -828,20 +886,7 @@ def phase_test_cli(dev) -> None:
                 or ms["mAP_0.50"] != 0.0:
             raise AssertionError("torch NMS + mAP: planted predictions must "
                                  "score exactly 1.0, shifted ones 0 at 0.5")
-        buf = io.StringIO()
-        os.environ["CNRMA_CAPACITY_DEBUG"] = "1"
-        try:
-            with contextlib.redirect_stdout(buf):
-                test_cli.main(argv + ["--max-scenes", "1", "--save-path",
-                                      os.path.join(root, "cap")])
-        finally:
-            del os.environ["CNRMA_CAPACITY_DEBUG"]
-        lines = [ln for ln in buf.getvalue().splitlines()
-                 if ln.startswith("[capacity]")]
-        log(f"[cli] scene0000_00 with CNRMA_CAPACITY_DEBUG=1: "
-            f"{len(lines)} capacity lines")
-        for ln in lines:
-            log(f"[cli] {ln}")
+        lines = _capacity_lines(argv, os.path.join(root, "cap"), "cli")
         names = {ln.split(":")[0] for ln in lines}
         want = {"[capacity] voxelize(stride 1)",
                 "[capacity] ray-march kept samples/view",
@@ -852,6 +897,27 @@ def phase_test_cli(dev) -> None:
         _mesh_at_full_width(dev, root, data, dim)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def _capacity_lines(argv, save: str, tag: str) -> list:
+    """The test CLI (``argv``) on its first scene with
+    ``CNRMA_CAPACITY_DEBUG=1``: its capacity lines, logged (a line that
+    repeats, such as each view's kept samples, once with its count)."""
+    from cnrma_torch.tools import test as test_cli
+    buf = io.StringIO()
+    os.environ["CNRMA_CAPACITY_DEBUG"] = "1"
+    try:
+        with contextlib.redirect_stdout(buf):
+            test_cli.main(argv + ["--max-scenes", "1", "--save-path", save])
+    finally:
+        del os.environ["CNRMA_CAPACITY_DEBUG"]
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("[capacity]")]
+    log(f"[{tag}] the first scene with CNRMA_CAPACITY_DEBUG=1: "
+        f"{len(lines)} capacity lines")
+    for ln, n in collections.Counter(lines).items():
+        log(f"[{tag}] {ln}" + (f" (x{n})" if n > 1 else ""))
+    return lines
 
 
 def _mesh_at_full_width(dev, root: str, data: str, dim) -> None:
@@ -1389,13 +1455,19 @@ def phase_train_cli(dev) -> dict:
         scene = recs[0]["scene"]
         # a few AdamW steps from random weights move the TSDF far (its
         # surface, and so the kept points and boxes, come and go from run
-        # to run), so the files must be well formed but may hold no points
+        # to run), so the files must be well formed but may hold no points;
+        # such a checkpoint's eval-mode norms keep most of their initial
+        # statistics, and on a dense cloud its sparse ResNet's outputs grow
+        # until the head's exp overflows fp32 (the reference's arithmetic
+        # too; ``python -m cnrma_torch.tools.overflow_survey``), so boxes
+        # may be infinite there, and only there
         n = _check_scene_files(save, middle, scene, cfg.model.voxel_dim_test,
-                               need_points=False)
+                               need_points=False, overflow_ok=True)
         log(f"[train cli] the test CLI ran {scene} from "
             f"{os.path.basename(ckpt)}: forward {recs[0]['forward_s']:.3f} "
-            f"s, {n['raw_boxes']} raw boxes, {n['middle_points']} points, "
-            f"files well formed")
+            f"s, {n['raw_boxes']} raw boxes ({n['overflowed']} with face "
+            f"distances past fp32), {n['middle_points']} points, files well "
+            f"formed")
         with np.load(os.path.join(save, scene, scene + ".npz")) as z:
             written = torch.from_numpy(z["tsdf"])
         err, moved = _test_forward_tsdf(cfg, data, val, (ckpt, init),
@@ -1469,12 +1541,13 @@ def _run_train_cli(argv, counters, steps: int, tag: str):
     return records, ckpt, launches, tee.getvalue()
 
 
-def _stage1_volume_bwd(dev, cfg, data: str, ann: str) -> None:
+def _stage1_volume_bwd(dev, cfg, data: str, ann: str) -> list:
     """K1b at stage 1's shape: the projections of the stage-1 reader's
     first sample (a random z-rotation and crop of the room, 50 views, the
     160x160x64 grid), against its plain version at phase 6c's tolerance,
     in stage 1's bf16 and in fp32; its time beside the plain version's
-    and, in fp32, ``index_add_``'s; the pairs that skipped its window."""
+    and, in fp32, ``index_add_``'s; the pairs that skipped its window.
+    Returns its device-time calls for phase 8, as ``_arkit_kernels``."""
     from cnrma_torch.core.builder import build_dataset
     from cnrma_torch.ops import backproject as bp
     cfg.merge_from_options({"data.train.data_root": data,
@@ -1514,6 +1587,13 @@ def _stage1_volume_bwd(dev, cfg, data: str, ann: str) -> None:
             f"({int(direct.item()) / max(pairs, 1):.1%})")
         del args
         torch.cuda.empty_cache()
+    dim = tuple(cfg.model.voxel_dim_train)
+    return [(f"K1b at stage 1's shape, {str(dtype)[6:]}",
+             "volume_accum_bwd_kernel",
+             lambda dtype=dtype: volume_bwd_args_at(
+                 dev, dtype, proj, valid, dim, cfg.model.voxel_size, h, w),
+             lambda a: bp.volume_accum_bwd_cuda(*a))
+            for dtype in (torch.bfloat16, torch.float32)]
 
 
 def _gt_meshes(dev, data: str, scenes, out: str) -> None:
@@ -1575,7 +1655,7 @@ def _bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
         a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
 
 
-def phase_three_stages(dev) -> None:
+def phase_three_stages(dev) -> list:
     """The three-stage ScanNet recipe on the card (``doc/train_val.md``),
     on two synthetic ScanNet scenes written under ``build/``: stage 1 (the
     train CLI on ``configs/atlas_recon_scannet.py``, 3 steps at its full
@@ -1588,7 +1668,8 @@ def phase_three_stages(dev) -> None:
     width), held against this process's forward; stage 2 (the train CLI on
     ``configs/fcaf3d_middle_scannet.py``, 3 steps at 500,000 points a scene,
     on synthetic dumps and on the 2.1 dumps that are not empty); the merge,
-    bit for bit; one stage-3 step from the merged file."""
+    bit for bit; one stage-3 step from the merged file.  Returns K1b's
+    device-time calls at stage 1's shape for phase 8."""
     from cnrma_torch.core.config import Config
     from cnrma_torch.ops.backproject import VOLUME_ACCUM, VOLUME_ACCUM_BWD
     from cnrma_torch.ops.ray_marching import RAY_MARCH
@@ -1630,7 +1711,8 @@ def phase_three_stages(dev) -> None:
                                  f"once, K2 never: {launches}")
 
         # 2. K1b at stage 1's shape
-        _stage1_volume_bwd(dev, Config.fromfile(STAGE1_CONFIG), data, ann)
+        calls = _stage1_volume_bwd(dev, Config.fromfile(STAGE1_CONFIG), data,
+                                   ann)
 
         # 3. stage 1's output: the TSDF and mesh, scored against GT meshes
         res1 = os.path.join(root, "res1")
@@ -1742,6 +1824,436 @@ def phase_three_stages(dev) -> None:
             raise AssertionError(f"the stage-3 step must launch K1, K1b and "
                                  f"K2 once: {launches}")
         log(f"[stages] phase took {time.perf_counter() - t_phase:.1f} s")
+        return calls
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+ARKIT_CONFIG = "configs/ray_marching_arkit.py"
+ARKIT_STAGE2_CONFIG = "configs/fcaf3d_middle_arkit.py"
+
+
+def _arkit_tiny(dev, root: str) -> None:
+    """The ARKit model's tiny fp32 test forward, GPU against CPU: the yaw
+    head of ``configs/ray_marching_arkit.py`` (17 classes, 8 regression
+    outputs) cut to a 16^3 grid and the tiny detector capacities, the
+    default initialisation (seed 0), on a tiny synthetic ARKit scene read
+    by the ARKit reader (4 views of 96x64, ``middle`` space)."""
+    from cnrma_torch.core.builder import build_dataset, build_model
+    from cnrma_torch.core.config import Config
+    from cnrma_torch.synthetic import write_arkit
+    data = os.path.join(root, "tiny")
+    ann = write_arkit(data, n_scenes=1, n_frames=6, tsdf_dim=(24, 24, 16),
+                      image_size=(128, 96))
+    cfg = Config.fromfile(ARKIT_CONFIG)
+    cfg.merge_from_options({
+        "data.test.data_root": data, "data.test.ann_file": ann,
+        "data.test.num_frames": "4", "data.test.image_size": "(96,64)",
+        "model.voxel_dim_test": "(16,16,16)",
+        "data.test.voxel_dim": "(16,16,16)", "model.ray_samples": "64",
+        "model.rays_per_view_cap": "2048", "model.max_points": "8192",
+        "model.detection_head.pts_threshold": "500",
+        "model.detection_head.test_cfg.nms_pre": "16",
+        "model.capacities": "{'voxelize':2048,'stride2':1024,'stride4':512,"
+                            "'levels':(256,128,64,32),'neck':(512,256,128)}"})
+    torch.manual_seed(0)
+    model = build_model(cfg)
+    sample = build_dataset(cfg, "test", seed=0)[0]
+    batch = {k: torch.from_numpy(np.asarray(sample[k])[None])
+             for k in ("imgs", "projection", "view_valid", "offset")}
+    uniform = torch.from_numpy(np.random.RandomState(0).rand(
+        1, 4 * 2048).astype(np.float32))
+    gpu_against_cpu(dev, model, batch, uniform, "arkit tiny")
+    del model
+    torch.cuda.empty_cache()
+
+
+def _plant_arkit_dumps(data: str, out: str, scenes, turn: bool) -> None:
+    """Raw box dumps whose every prediction is a GT yaw box of its scene
+    (score 0.9 in its class, 0.001 elsewhere), optionally turned by pi/2
+    about its centre (the boxes are not square, so the turned box no longer
+    matches it)."""
+    for scene in scenes:
+        gt = np.load(os.path.join(data, "arkit_instance_data",
+                                  scene + "_aligned_bbox.npy"))
+        boxes = gt[:, :7].astype(np.float32).copy()
+        if turn:
+            boxes[:, 6] += math.pi / 2
+        scores = np.full((len(gt), 17), 0.001, np.float32)
+        scores[np.arange(len(gt)), gt[:, 7].astype(int)] = 0.9
+        os.makedirs(os.path.join(out, scene), exist_ok=True)
+        np.savez(os.path.join(out, scene, scene + "_bbox_raw.npz"),
+                 bboxes=boxes, scores=scores)
+
+
+def _rotated_nms_at_capacity(dev) -> None:
+    """Rotated NMS of one class at the head's largest output, 4 levels of
+    ``nms_pre`` 1000 rows (random yaw boxes in a 6 m room, seed 0): the
+    seconds and peak memory of its [4000, 4000] rotated BEV IoU and walk
+    on the card; the keep mask of its first 1000 boxes against the CPU's
+    (the whole set takes the CPU too long)."""
+    from cnrma_torch.ops.nms import nms_bev
+    rng = np.random.RandomState(0)
+    n = 4000
+    boxes = torch.from_numpy(np.concatenate([
+        rng.uniform(0, 6, (n, 2)), rng.uniform(0, 2, (n, 1)),
+        rng.uniform(0.2, 1.5, (n, 3)), rng.uniform(-np.pi, np.pi, (n, 1))],
+        1).astype(np.float32))
+    scores = torch.from_numpy(rng.rand(n).astype(np.float32))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    keep = nms_bev(boxes.to(dev), scores.to(dev), 0.5, rotated=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    k = 1000
+    t0 = time.perf_counter()
+    keep_cpu = nms_bev(boxes[:k], scores[:k], 0.5, rotated=True)
+    cpu_s = time.perf_counter() - t0
+    same = bool(torch.equal(nms_bev(boxes[:k].to(dev), scores[:k].to(dev),
+                                    0.5, rotated=True).cpu(), keep_cpu))
+    log(f"[arkit] rotated NMS of one class at 4 x nms_pre = {n} boxes: "
+        f"{secs:.3f} s on the card, peak memory {peak / 2 ** 30:.2f} GiB, "
+        f"{int(keep.sum())} kept; its first {k} boxes: keep mask equal to "
+        f"the CPU's {same} (CPU {cpu_s:.3f} s)")
+    if not same:
+        raise AssertionError("rotated NMS on the card keeps other boxes "
+                             "than on the CPU")
+
+
+def _arkit_test_cli(dev, root: str, data: str, ann: str) -> list:
+    """The test CLI on the two scenes at the ARKit config's full test width
+    (40 views of 480x640 from 256x192 PNG frames, 192x192x80, fp32,
+    ``middle`` space) from a default-initialised checkpoint; K1 and K2 once
+    a scene; the files (7-column boxes, 17 scores); the rotated NMS and mAP
+    on the card: of the CLI's boxes (printed), of planted GT boxes
+    (exactly 1.0) and of the same turned by pi/2 (mAP@0.50 under 1); the
+    rotated NMS at the head's capacity; points and boxes on a planted
+    surface; one scene's capacity lines.  Returns the scenes."""
+    from cnrma_torch.core.builder import build_model
+    from cnrma_torch.core.config import Config
+    from cnrma_torch.ops.backproject import VOLUME_ACCUM
+    from cnrma_torch.ops.ray_marching import RAY_MARCH
+    from cnrma_torch.tools import test as test_cli
+    cfg = Config.fromfile(ARKIT_CONFIG)
+    dim = tuple(cfg.model.voxel_dim_test)
+    torch.manual_seed(0)
+    ckpt = os.path.join(root, "init.pt")
+    torch.save(build_model(cfg).state_dict(), ckpt)
+    save, middle = os.path.join(root, "res"), os.path.join(root, "mid")
+    argv = [ARKIT_CONFIG, ckpt, "--save-path", save, "--middle-save-path",
+            middle, "--cfg-options", f"data.test.data_root={data}",
+            f"data.test.ann_file={ann}"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    VOLUME_ACCUM.launches = 0
+    RAY_MARCH.launches = 0
+    t0 = time.perf_counter()
+    records = test_cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = {"volume_accum": VOLUME_ACCUM.launches,
+                "ray_march": RAY_MARCH.launches}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[arkit cli] {len(records)} scenes at {dim}, "
+        f"{cfg.data.test.num_frames} views, in {wall:.2f} s; launches "
+        f"{launches}; peak memory {peak / 2 ** 30:.2f} GiB")
+    if launches != {"volume_accum": 2, "ray_march": 2} or len(records) != 2:
+        raise AssertionError(f"two ARKit scenes must launch each main-path "
+                             f"kernel twice: {launches}")
+    for r in records:
+        # the default initialisation's TSDF is nearly flat here, so a scene
+        # may keep no point and so no box: ``_arkit_surface`` plants one
+        r.update(_check_scene_files(save, middle, r["scene"], dim,
+                                    need_points=False, box_dim=7,
+                                    n_classes=17))
+        log(f"[arkit cli] {r['scene']}: read {r['load_s']:.3f} s (waited "
+            f"{r['wait_s']:.3f}), forward {r['forward_s']:.3f} s, write "
+            f"{r['write_s']:.3f} s (mesh {r['mesh_s']:.3f} s); "
+            f"{r['faces']} faces; {r['raw_boxes']} raw boxes of 7 columns, "
+            f"{r['middle_points']} points")
+    m = _score(data, save, "arkit")
+    log(f"[arkit cli] the CLI's boxes scored: rotated NMS "
+        f"{m['nms_s']:.3f} s, rotated mAP {m['map_s']:.3f} s; mAP@0.25 "
+        f"{m['mAP_0.25']:.4f}, mAP@0.50 {m['mAP_0.50']:.4f} (printed, not "
+        f"checked)")
+    scenes = [r["scene"] for r in records]
+    exact, turned = os.path.join(root, "planted"), os.path.join(root, "turned")
+    _plant_arkit_dumps(data, exact, scenes, turn=False)
+    _plant_arkit_dumps(data, turned, scenes, turn=True)
+    m, mt = _score(data, exact, "arkit"), _score(data, turned, "arkit")
+    log(f"[arkit cli] planted rotated boxes: mAP@0.25 {m['mAP_0.25']}, "
+        f"mAP@0.50 {m['mAP_0.50']} (NMS {m['nms_s']:.3f} s, mAP "
+        f"{m['map_s']:.3f} s); turned by pi/2: mAP@0.25 {mt['mAP_0.25']:.4f}"
+        f", mAP@0.50 {mt['mAP_0.50']:.4f}")
+    if m["mAP_0.25"] != 1.0 or m["mAP_0.50"] != 1.0 \
+            or not mt["mAP_0.50"] < 1.0:
+        raise AssertionError("rotated NMS + mAP: planted yaw boxes must "
+                             "score exactly 1.0, turned ones under 1 at 0.5")
+    _rotated_nms_at_capacity(dev)
+    _arkit_surface(dev, root, data, ann)
+    lines = _capacity_lines(argv, os.path.join(root, "cap"), "arkit cli")
+    if not any("voxelize" in ln for ln in lines):
+        raise AssertionError("capacity report: no voxelize line")
+    return scenes
+
+
+def _arkit_surface(dev, root: str, data: str, ann: str) -> None:
+    """The data-dependent half of the ARKit test forward at full size, as
+    phase 5b's: the yaw model with bench.py's synthesized parameters (seed
+    0; the default initialisation's untrained norms blow its activations
+    up past fp32 at full depth) on the first scene's reader sample (40
+    views of 480x640, ``middle`` space, fp32), its fine TSDF replaced by a
+    planted 0.5 m ball at the grid's centre (positive inside); the ray
+    march and the detector on it must give points and finite 7-column
+    boxes with 17 scores.  Every box scores over the NMS threshold in
+    every class, so ``nms_bbox`` and ``evaluate_bbox`` on them time the
+    rotated NMS and mAP at the head's full output."""
+    from cnrma_torch.core.builder import build_dataset, build_model
+    from cnrma_torch.core.config import Config
+    from cnrma_torch.synthetic import sphere_tsdf, synthesize_parameters
+    cfg = Config.fromfile(ARKIT_CONFIG)
+    cfg.merge_from_options({"data.test.data_root": data,
+                            "data.test.ann_file": ann})
+    model = build_model(cfg)
+    synthesize_parameters(model, 0)
+    model.to(dev)
+    sample = build_dataset(cfg, "test", seed=0)[0]
+    batch = {k: torch.from_numpy(np.asarray(sample[k])[None]).to(dev)
+             for k in ("imgs", "projection", "view_valid", "offset")}
+    dim, vs = tuple(cfg.model.voxel_dim_test), cfg.model.voxel_size
+    tsdf = -sphere_tsdf(dim, vs, radius=0.5, trunc=3 * vs).to(dev)[None]
+    with torch.no_grad():
+        feats = model.extract_2d(batch["imgs"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pts = model.ray_march(feats, batch["projection"],
+                              batch["view_valid"], tsdf,
+                              torch.Generator(device=dev).manual_seed(0))
+        xyz = pts.xyz + batch["offset"][:, None, :]
+        bboxes, scores, bvalid = model.detector.get_bboxes(
+            model.detector(xyz, pts.feats, pts.valid))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    v = bvalid[0]
+    n_points, n_boxes = int(pts.valid.sum()), int(v.sum())
+    finite = {name: bool(torch.isfinite(t).all()) for name, t in
+              (("points", pts.xyz), ("features", pts.feats),
+               ("boxes", bboxes[0][v]), ("scores", scores[0][v]))}
+    log(f"[arkit surface] planted ball, the ARKit test shape in fp32: "
+        f"{n_points} kept points of {model.max_points}; {n_boxes} valid "
+        f"boxes of {bboxes.shape[-1]} columns, {scores.shape[-1]} scores; "
+        f"ray march + detection {secs * 1e3:.1f} ms; finite {finite}")
+    if not all(finite.values()) or n_points == 0 or n_boxes == 0 \
+            or bboxes.shape[-1] != 7 or scores.shape[-1] != 17:
+        raise AssertionError("ARKit planted surface: no points, no boxes, "
+                             "non-finite values or not 7-DoF boxes")
+    out = os.path.join(root, "surface", sample["scene"])
+    os.makedirs(out)
+    np.savez(os.path.join(out, sample["scene"] + "_bbox_raw.npz"),
+             bboxes=bboxes[0][v].cpu().numpy(),
+             scores=scores[0][v].cpu().numpy())
+    del model, batch, feats, pts, bboxes, scores
+    torch.cuda.empty_cache()
+    m = _score(data, os.path.dirname(out), "arkit")
+    kept = np.load(os.path.join(out, sample["scene"] + "_atlas_bbox.npz"))
+    log(f"[arkit surface] rotated NMS of its {n_boxes} boxes in 17 classes "
+        f"on the card: {m['nms_s']:.3f} s, {len(kept['boxes'])} kept; "
+        f"rotated mAP {m['map_s']:.3f} s")
+
+
+def arkit_volume_args(dev, proj_full, view_valid) -> tuple:
+    """K1's arguments at an ARKit shape: a reader's projections ([40, 3,
+    4] for 480x640), 40 views of [120, 160, 32] fp32 features (uniform,
+    seed 0) over the 192x192x80 grid at 4 cm."""
+    c = TRAIN_FULL
+    proj = proj_full.clone()
+    proj[:, :2, :] /= 4
+    feats = torch.rand(proj.shape[0], c["h"] // 4, c["w"] // 4, 32,
+                       generator=torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    return (proj, feats, view_valid, c["voxel_dim"], c["voxel_size"],
+            (0.0, 0.0, 0.0))
+
+
+def arkit_ray_args(dev, proj_full, view_valid) -> tuple:
+    """K2's arguments at an ARKit shape: the rays of a reader's 40 views at
+    [120, 160] on a planted 0.5 m ball TSDF at the 192x192x80 grid's
+    centre (positive inside) and its occupancy, the config's march
+    constants."""
+    from cnrma_torch.ops import ray_marching as rm
+    from cnrma_torch.synthetic import sphere_tsdf
+    c = TRAIN_FULL
+    proj = proj_full.clone()
+    proj[:, :2, :] /= 4
+    tsdf = -sphere_tsdf(c["voxel_dim"], c["voxel_size"], radius=0.5,
+                        trunc=3 * c["voxel_size"]).to(dev)
+    o, d = rm.get_ray_parameters(proj, c["h"] // 4, c["w"] // 4)
+    return (o, d, view_valid, tsdf, rm.build_occupancy(tsdf, 8),
+            (0.0, 0.0, 0.0), c["voxel_size"], 300, 0.05, 8, 48, 8)
+
+
+def arkit_volume_bwd_args(dev, proj_full, view_valid) -> tuple:
+    """K1b's arguments at an ARKit shape, fp32 (``volume_bwd_args_at``)."""
+    c = TRAIN_FULL
+    return volume_bwd_args_at(dev, torch.float32, proj_full, view_valid,
+                              c["voxel_dim"], c["voxel_size"], c["h"],
+                              c["w"])
+
+
+def _arkit_kernels(dev, test_sample, train_sample) -> list:
+    """K1 and K2 at the ARKit test shape, K1b at its training shape (the
+    readers' projections of a synthetic scene), fp32 as the config runs,
+    each against its plain version (phases 3, 4 and 6c's tolerances) and
+    timed by CUDA events beside it.  Returns the device-time calls for
+    phase 8: (label, kernel symbol, the call's arguments' maker, call)."""
+    from cnrma_torch.ops import backproject as bp
+    from cnrma_torch.ops import ray_marching as rm
+
+    def views(sample):
+        return (torch.from_numpy(sample["projection"]).to(dev),
+                torch.from_numpy(sample["view_valid"]).to(dev))
+    test_views, train_views = views(test_sample), views(train_sample)
+    vol = arkit_volume_args(dev, *test_views)
+    got, cnt, ok = bp.volume_accum_cuda(*vol)
+    want, pcnt, pok = bp.volume_accum_plain(*vol)
+    err = float((got - want).abs().max())
+    if not (torch.equal(ok, pok) and torch.equal(cnt, pcnt)) or err > 1e-6:
+        raise AssertionError(f"volume kernel at the ARKit test shape: error "
+                             f"{err} or masks differ")
+    b = bound(*volume_work(*vol, cnt)[:2])
+    log(f"[arkit kernels] K1 fp32, 40 views of [120, 160, 32] over "
+        f"192x192x80: mask and counts equal, max|err| {err:.3g} (tol 1e-6);"
+        f" kernel {time_ms(lambda: bp.volume_accum_cuda(*vol), dev):.4f} ms"
+        f" event, plain {time_ms(lambda: bp.volume_accum_plain(*vol), dev, reps=3):.3f}"
+        f" ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']}; observed "
+        f"voxels {ok.float().mean().item():.4f}, (voxel, view) pairs "
+        f"{float(cnt.sum()):.0f}")
+    del vol, got, want
+    ray = arkit_ray_args(dev, *test_views)
+    got, want = rm.march_rays_cuda(*ray), rm.march_rays_plain(*ray)
+    differ, err = rm.kept_mismatch(got[:2], want[:2], 300, 0.05)
+    kept = int((got[0] > 0).sum())
+    if not (torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])) \
+            or differ or err > RAY_TOL or kept == 0:
+        raise AssertionError(f"ray-march kernel at the ARKit test shape: "
+                             f"{differ} kept samples differ, weight error "
+                             f"{err}, {kept} kept")
+    work = bound(*ray_work(ray, got[2], got[3]))
+    log(f"[arkit kernels] K2, 40 views x 19,200 rays on a planted ball: "
+        f"j0/has_hit equal, hit share "
+        f"{float(got[3].float().mean()):.4f}, {kept} kept samples, sets "
+        f"equal, weight max|err| {err:.3g} (tol {RAY_TOL}); kernel "
+        f"{time_ms(lambda: rm.march_rays_cuda(*ray), dev):.4f} ms event, "
+        f"plain {time_ms(lambda: rm.march_rays_plain(*ray), dev, reps=3):.3f}"
+        f" ms; bound {work['bound_ms']:.6f} ms by {work['bound_by']}")
+    del ray, got, want
+    bwd = arkit_volume_bwd_args(dev, *train_views)
+    c = check_volume_bwd(bwd, "ARKit training shape")
+    nbytes, ops, pairs = volume_bwd_work(bwd)
+    b = bound(nbytes, ops)
+    direct = torch.zeros(1, dtype=torch.int64, device=dev)
+    bp.volume_accum_bwd_cuda(*bwd, direct=direct)
+    log(f"[arkit kernels] K1b fp32 at the training shape: max|err| "
+        f"{c['err']:.3g} = {c['err'] / c['scale']:.3g} of the largest "
+        f"gradient (tol {c['tol_name']}); kernel "
+        f"{time_ms(lambda: bp.volume_accum_bwd_cuda(*bwd), dev):.4f} ms "
+        f"event, plain "
+        f"{time_ms(lambda: bp.volume_accum_bwd_plain(*bwd), dev, reps=3):.3f}"
+        f" ms, index_add_ {time_ms(index_add_library(bwd), dev):.4f} ms; "
+        f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}; pairs "
+        f"{pairs:.0f}, off the window {int(direct.item())} "
+        f"({int(direct.item()) / max(pairs, 1):.1%})")
+    del bwd
+    torch.cuda.empty_cache()
+    return [("K1 at the ARKit test shape", "volume_accum_kernel",
+             lambda: arkit_volume_args(dev, *test_views),
+             lambda a: bp.volume_accum_cuda(*a)),
+            ("K2 at the ARKit test shape", "ray_march_kernel",
+             lambda: arkit_ray_args(dev, *test_views),
+             lambda a: rm.march_rays_cuda(*a)),
+            ("K1b at the ARKit training shape", "volume_accum_bwd_kernel",
+             lambda: arkit_volume_bwd_args(dev, *train_views),
+             lambda a: bp.volume_accum_bwd_cuda(*a))]
+
+
+def phase_arkit(dev) -> list:
+    """The ARKitScenes 7-DoF path on the card, on two synthetic ARKit
+    scenes (60 frames of 256x192 PNG, ``lowres_wide`` layout, five yaw
+    boxes a room) written under ``build/``: (a) the yaw model's tiny fp32
+    forward, GPU against CPU; (b) the test CLI at the config's full width,
+    rotated NMS and mAP on the card; (c) 3 stage-3 steps of the train CLI
+    at full width (``configs/ray_marching_arkit.py``: 40 views of 480x640,
+    192x192x80, fp32, the rotated IoU loss); (d) 3 stage-2 steps on
+    ``configs/fcaf3d_middle_arkit.py`` at 500,000 points a scene on the
+    rooms' surfaces, each with positives for the rotated IoU loss; (e) K1
+    and K2 at the ARKit test shape and K1b at its training shape against
+    their plain versions.  Returns (e)'s device-time calls for phase 8."""
+    from cnrma_torch.core.builder import build_dataset
+    from cnrma_torch.core.config import Config
+    from cnrma_torch.ops.backproject import VOLUME_ACCUM, VOLUME_ACCUM_BWD
+    from cnrma_torch.ops.ray_marching import RAY_MARCH
+    from cnrma_torch.synthetic import write_arkit, write_point_dumps
+    counters = {"volume_accum": VOLUME_ACCUM,
+                "volume_accum_bwd": VOLUME_ACCUM_BWD, "ray_march": RAY_MARCH}
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="arkit_", dir="build")
+    t_phase = time.perf_counter()
+    try:
+        _arkit_tiny(dev, root)
+        t0 = time.perf_counter()
+        data = os.path.join(root, "data")
+        val = write_arkit(data, n_scenes=2, n_frames=60)
+        train = os.path.join(data, "arkit_infos_train.pkl")
+        shutil.copy(val, train)
+        log(f"[arkit] wrote 2 scenes (60 PNG frames of 256x192, room TSDF "
+            f"over 168x152x64, five yaw boxes) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        _arkit_test_cli(dev, root, data, val)
+
+        records, _, launches, _ = _run_train_cli(
+            [ARKIT_CONFIG, "--work-dir", os.path.join(root, "s3"),
+             "--max-steps", "3", "--cfg-options",
+             f"data.train.data_root={data}", f"data.train.ann_file={train}",
+             "log_config.interval=1"], counters, 3, "arkit stage 3")
+        log(f"[arkit stage 3] launches a step: "
+            + ", ".join(f"{k} {v / 3:g}" for k, v in launches.items())
+            + "; a finite grad_norm each step: every leaf's gradient "
+            f"finite; steps with positives (loss_bbox > 0): "
+            f"{sum(r['log_vars']['loss_bbox'] > 0 for r in records)} of 3 "
+            f"(the default initialisation may keep no point)")
+        if launches != {"volume_accum": 3, "volume_accum_bwd": 3,
+                        "ray_march": 3}:
+            raise AssertionError(f"each ARKit stage-3 step must launch K1, "
+                                 f"K1b and K2 once: {launches}")
+
+        syn = os.path.join(data, "middle_points")
+        write_point_dumps(data, syn, n_points=600000,
+                          ann_name="arkit_infos_train.pkl")
+        records, _, launches, _ = _run_train_cli(
+            [ARKIT_STAGE2_CONFIG, "--work-dir", os.path.join(root, "s2"),
+             "--max-steps", "3", "--cfg-options",
+             f"data.train.data_root={data}", f"data.train.ann_file={train}",
+             f"data.train.points_dir={syn}", "log_config.interval=1"],
+            counters, 3, "arkit stage 2")
+        if any(launches.values()):
+            raise AssertionError(f"stage 2 launches no volume or march "
+                                 f"kernel: {launches}")
+        # points on the yaw boxes' faces: positives in every step, so the
+        # rotated IoU loss and its backward run at full width
+        if not all(r["log_vars"]["loss_bbox"] > 0 for r in records):
+            raise AssertionError("ARKit stage 2: a step without positives "
+                                 "(loss_bbox 0)")
+
+        cfg = Config.fromfile(ARKIT_CONFIG)
+        cfg.merge_from_options({"data.test.data_root": data,
+                                "data.test.ann_file": val,
+                                "data.train.data_root": data,
+                                "data.train.ann_file": train})
+        calls = _arkit_kernels(dev, build_dataset(cfg, "test", seed=0)[0],
+                               build_dataset(cfg, "train", seed=0)[0])
+        log(f"[arkit] phase took {time.perf_counter() - t_phase:.1f} s")
+        return calls
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1817,13 +2329,16 @@ def phase_probes(dev):
     return rows, [(c.symbol, c.kernel, c.library) for c in cases]
 
 
-def phase_device_time(dev, rows, probe_calls) -> None:
+def phase_device_time(dev, rows, probe_calls, shape_calls) -> None:
     """Each kernel's device time per call (``device_ms``), and its library
     call's where there is one, from profiler traces; K1 and K2 on the bf16
     volume and the ray-march scene of their phases, inputs made again here
     so that no phase before holds them (K1's fp32 time is logged beside
     its bf16 row).  The launch floor (``floor_ms``, the device time of the
-    empty kernel) goes on every row.  Last of all: once a profiler session
+    empty kernel) goes on every row.  Then ``shape_calls``, the main-path
+    kernels at the other shapes the phases drive (K1b at stage 1's crop;
+    K1, K2 and K1b at ARKit's), logged beside the floor.  Last of all: once
+    a profiler session
     has run, CUPTI's launch callbacks stay on and slow every later launch
     on the host, so host-timed phases come first."""
     from cnrma_torch.ops import backproject as bp
@@ -1856,6 +2371,14 @@ def phase_device_time(dev, rows, probe_calls) -> None:
             f"{fmt_ms(row['device_ms'])}, library "
             f"{fmt_ms(row['library_device_ms'])}, bound "
             f"{row['bound_ms']:.6f} ms, floor {fmt_ms(floor)}")
+    del vol, rays, bwd, calls
+    for label, symbol, make, call in shape_calls:
+        args = make()
+        ms = device_ms(lambda: call(args), symbol)
+        ratio = f", {ms / floor:.2f}x the floor" if ms and floor else ""
+        log(f"[device time] {label}: kernel {fmt_ms(ms)}{ratio}")
+        del args
+        torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -1872,7 +2395,8 @@ def main() -> None:
     bwd = phase_volume_backward(dev)
     phase_train_reference(dev)
     train_launches = phase_train_cli(dev)
-    phase_three_stages(dev)
+    stage1_calls = phase_three_stages(dev)
+    arkit_calls = phase_arkit(dev)
     probes, probe_calls = phase_probes(dev)
     kernels = [
         dict(name="volume_accum", route="cuda",
@@ -1889,7 +2413,7 @@ def main() -> None:
              launches=train_launches["volume_accum_bwd"], **bwd),
         *probes,
     ]
-    phase_device_time(dev, kernels, probe_calls)
+    phase_device_time(dev, kernels, probe_calls, stage1_calls + arkit_calls)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -8,8 +8,10 @@ knob names).  ``cnrma_kwargs`` reads the knobs that parameterize the torch
 reconstruction knobs only), ``fcaf3d_only_kwargs`` those of ``FCAF3DOnly``,
 each with the JAX builder's defaults; ``build_model`` builds the config's
 model, on the training grid for ``mode="train"`` and the test grid for
-``mode="test"``.  The ARKit reader and yaw detector, and depth marching,
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+``mode="test"``; ``loss_bbox.with_yaw`` (``model.with_yaw`` for
+``FCAF3DOnly``) gives the ARKit configs their 7-DoF detector.  Depth
+marching raises ``NotImplementedError`` naming the ROADMAP item that
+brings it.
 """
 
 from __future__ import annotations
@@ -20,26 +22,12 @@ import torch
 from torch import nn
 
 from cnrma_torch.core.registry import DATASETS, build_from_cfg
+from cnrma_torch.data import arkit  # noqa: F401  (registers the reader)
 from cnrma_torch.data import points_dataset  # noqa: F401  (registers it)
 from cnrma_torch.data import scannet  # noqa: F401  (registers the reader)
 from cnrma_torch.models.cn_rma import CNRMA, Atlas
 from cnrma_torch.models.fcaf3d import DetectionCapacities
 from cnrma_torch.models.fcaf3d_only import FCAF3DOnly
-
-_LATER = {
-    "AtlasARKitDataset": "the ARKit reader (ROADMAP queue 1, item 9)",
-}
-
-
-def _not_ported(name: str):
-    return NotImplementedError(f"{name}: {_LATER[name]} is not ported yet")
-
-
-def _refuse_yaw(with_yaw) -> None:
-    if bool(with_yaw):
-        raise NotImplementedError(
-            "with_yaw: the ARKit yaw detector is ROADMAP queue 1, item 9")
-
 
 def _build_capacities(caps_cfg) -> DetectionCapacities:
     if not caps_cfg:
@@ -67,6 +55,9 @@ def cnrma_kwargs(cfg, mode: str = "test") -> Dict[str, Any]:
         # implemented, and the reference always trains the views jointly
         raise ValueError("use_batchnorm_train=False (per-frame batch "
                          "statistics in training) is not implemented")
+    # use_batchnorm_test is accepted and ignored, as by the JAX builder: at
+    # test time the norms use running statistics, so per-frame and joint
+    # views give the same result
     common = dict(
         voxel_dim=tuple(m["voxel_dim_train" if mode == "train"
                           else "voxel_dim_test"]),
@@ -85,10 +76,9 @@ def cnrma_kwargs(cfg, mode: str = "test") -> Dict[str, Any]:
 
     head = m.get("detection_head", {})
     test_cfg = head.get("test_cfg", {}) or {}
-    _refuse_yaw((head.get("loss_bbox", {}) or {}).get("with_yaw", False))
     if m.get("ray_marching_type", "neus") != "neus":
         raise NotImplementedError(
-            "ray_marching_type 'depth' is ROADMAP queue 1, item 9")
+            "ray_marching_type 'depth' is not ported yet (ROADMAP queue 1)")
     # Ignored: the TPU knobs of the JAX volume and sparse paths (bp_tile,
     # bp_tile_frac, bp_rect_h, bp_rect_w, bp_rect_frac, bp_overflow_frac,
     # sparse_lut_budget) have no counterpart in the port's K1 and kernel
@@ -108,6 +98,8 @@ def cnrma_kwargs(cfg, mode: str = "test") -> Dict[str, Any]:
         bp_accum_dtype=m.get("bp_accum_dtype", "float32"),
         n_classes=head.get("n_classes", 18),
         n_reg_outs=head.get("n_reg_outs", 6),
+        with_yaw=bool((head.get("loss_bbox", {}) or {}).get("with_yaw",
+                                                             False)),
         voxel_size_fcaf3d=m.get("voxel_size_fcaf3d", 0.01),
         pts_threshold=head.get("pts_threshold", 200000),
         assigner_limit=assigner.get("limit", 27),
@@ -125,11 +117,11 @@ def fcaf3d_only_kwargs(cfg) -> Dict[str, Any]:
     ``model.type='FCAF3DOnly'`` (flat knobs, ``configs/
     fcaf3d_middle_scannet.py``), read as the JAX builder reads them."""
     m = cfg["model"] if "model" in cfg.keys() else cfg
-    _refuse_yaw(m.get("with_yaw", False))
     assigner = m.get("assigner", {}) or {}
     return dict(
         n_classes=m.get("n_classes", 18),
         n_reg_outs=m.get("n_reg_outs", 6),
+        with_yaw=bool(m.get("with_yaw", False)),
         voxel_size=m.get("voxel_size", 0.01),
         pts_threshold=m.get("pts_threshold", 200000),
         assigner_limit=assigner.get("limit", 27),
@@ -159,8 +151,6 @@ def build_dataset(cfg, data_key: str = "test", **overrides):
     """cfg.data.{train,val,test} dict -> dataset instance."""
     d = dict(cfg["data"][data_key])
     d.pop("pipeline", None)
-    if d.get("type") in _LATER:
-        raise _not_ported(d["type"])
     if d.get("type") == "MiddlePointsDataset":
         # dumped points: no voxel grid, no space mode (the JAX builder
         # passes both, which that reader does not take)

@@ -139,19 +139,20 @@ def feature_transform_aug(points: torch.Tensor, boxes: torch.Tensor,
 
 
 def augment_scenes(points: torch.Tensor, boxes: torch.Tensor,
-                   config: Dict[str, Any],
+                   config: Dict[str, Any], with_yaw: bool,
                    generator: Optional[torch.Generator] = None,
                    aug_draws: Optional[Sequence[Dict[str, torch.Tensor]]]
                    = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``feature_transform_aug`` (no yaw) of each scene's points [B, P, 3]
-    and GT boxes [B, M, 7], with the draws ``aug_draws`` (one
-    ``draw_feature_transform`` dict a scene) or, without them, drawn from
-    ``generator`` by the ``config`` (``FEATURE_TRANSFORM``'s keys)."""
+    """``feature_transform_aug`` of each scene's points [B, P, 3] and GT
+    boxes [B, M, 7] (7-DoF with ``with_yaw``), with the draws
+    ``aug_draws`` (one ``draw_feature_transform`` dict a scene) or, without
+    them, drawn from ``generator`` by the ``config``
+    (``FEATURE_TRANSFORM``'s keys)."""
     scenes = []
     for b in range(points.shape[0]):
         draws = (aug_draws[b] if aug_draws is not None else
                  draw_feature_transform(generator, points.device, **config))
-        scenes.append(feature_transform_aug(points[b], boxes[b], False,
+        scenes.append(feature_transform_aug(points[b], boxes[b], with_yaw,
                                             draws))
     return (torch.stack([p for p, _ in scenes]),
             torch.stack([bx for _, bx in scenes]))
@@ -209,7 +210,8 @@ class CNRMA(nn.Module):
                  ray_skip_factor: int = 8, ray_skip_window: int = 48,
                  ray_skip_coarse_step: int = 8,
                  bp_accum_dtype: str = "float32", n_classes: int = 18,
-                 n_reg_outs: int = 6, voxel_size_fcaf3d: float = 0.01,
+                 n_reg_outs: int = 6, with_yaw: bool = False,
+                 voxel_size_fcaf3d: float = 0.01,
                  pts_threshold: int = 200000, assigner_limit: int = 27,
                  assigner_topk: int = 18, nms_pre: int = 1000,
                  capacities: DetectionCapacities = DetectionCapacities(),
@@ -224,6 +226,7 @@ class CNRMA(nn.Module):
         self.use_feature_transform = use_feature_transform
         self.feature_transform = {**FEATURE_TRANSFORM,
                                   **(feature_transform or {})}
+        self.with_yaw = with_yaw
         self.voxel_dim = tuple(voxel_dim)
         self.voxel_size = voxel_size
         self.origin = tuple(float(o) for o in origin)
@@ -248,8 +251,9 @@ class CNRMA(nn.Module):
                 in_channels=feature_dim, n_classes=n_classes,
                 n_reg_outs=n_reg_outs, voxel_size=voxel_size_fcaf3d,
                 pts_threshold=pts_threshold, assigner_limit=assigner_limit,
-                assigner_topk=assigner_topk, nms_pre=nms_pre,
-                capacities=capacities, compute_dtype=compute_dtype)
+                assigner_topk=assigner_topk, with_yaw=with_yaw,
+                nms_pre=nms_pre, capacities=capacities,
+                compute_dtype=compute_dtype)
 
     # ------------------------------------------------------------------
     def normalize_images(self, imgs: torch.Tensor) -> torch.Tensor:
@@ -401,7 +405,8 @@ class CNRMA(nn.Module):
         if self.use_feature_transform:
             xyz, gt_boxes = augment_scenes(xyz, gt_boxes,
                                            self.feature_transform,
-                                           generator, aug_draws)
+                                           self.with_yaw, generator,
+                                           aug_draws)
         mark("augment")
         level_outs = self.detector(xyz, pts.feats, pts.valid)
         mark("detector")

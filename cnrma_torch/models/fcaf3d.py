@@ -264,11 +264,13 @@ class FCAF3DDetector(nn.Module):
                  n_reg_outs: int = 6, voxel_size: float = 0.01,
                  depth: int = 34, pts_threshold: int = 200000,
                  assigner_limit: int = 27, assigner_topk: int = 18,
-                 yaw_parametrization: str = "fcaf3d", nms_pre: int = 1000,
+                 yaw_parametrization: str = "fcaf3d", with_yaw: bool = False,
+                 nms_pre: int = 1000,
                  capacities: DetectionCapacities = DetectionCapacities(),
                  compute_dtype: Any = torch.float32):
         super().__init__()
         self.n_classes = n_classes
+        self.with_yaw = with_yaw
         self.assigner_limit = assigner_limit
         self.assigner_topk = assigner_topk
         self.voxel_size = voxel_size
@@ -309,9 +311,10 @@ class FCAF3DDetector(nn.Module):
         rows concatenated, assigned per scene; focal and centerness losses
         over the positive count and the IoU loss over the summed
         centerness targets, each averaged over the scenes and clamped at 1
-        and 1e-6; axis-aligned boxes (the yaw loss comes with the ARKit
-        path, ROADMAP queue 1, item 9).  gt_boxes [B, M, 7] gravity-center
-        z, gt_labels and gt_valid [B, M]."""
+        and 1e-6; the IoU of axis-aligned boxes, or with ``with_yaw`` of
+        the 7-DoF boxes (all seven columns of the decoded boxes and the
+        targets).  gt_boxes [B, M, 7] gravity-center z, gt_labels and
+        gt_valid [B, M]."""
         def cat(xs):
             return torch.cat(xs, dim=1)
         centerness = cat([o.centerness for o in level_outs])
@@ -342,11 +345,12 @@ class FCAF3DDetector(nn.Module):
             valid.reshape(-1), avg_factor=n_pos * b)
         loss_ctr = bce_loss(centerness.reshape(-1), ctr_t.reshape(-1),
                             pos.reshape(-1), avg_factor=n_pos * b)
+        k = 7 if self.with_yaw else 6
         preds = decode_bbox(points, bbox_pred, self.yaw_parametrization)
         loss_bbox = iou3d_loss(
-            preds[..., :6].reshape(-1, 6), box_t[..., :6].reshape(-1, 6),
+            preds[..., :k].reshape(-1, k), box_t[..., :k].reshape(-1, k),
             weight=ctr_t.reshape(-1), valid=pos.reshape(-1),
-            avg_factor=denorm * b, with_yaw=False)
+            avg_factor=denorm * b, with_yaw=self.with_yaw)
         return {"loss_centerness": loss_ctr, "loss_bbox": loss_bbox,
                 "loss_cls": loss_cls}
 

@@ -6,7 +6,8 @@ as ``CNRMA``'s, with the same names, so its parameters move 1:1 into the
 stage-3 model (``python -m cnrma_torch.tools.combine_models``).  In training
 the feature augmentation runs on the points, with the draws of a
 ``torch.Generator`` or, in the parity tests, the caller's; the test forward
-returns the raw per-level top-k boxes.  The yaw head (ARKit) is not ported.
+returns the raw per-level top-k boxes; ``with_yaw`` (ARKit) gives 7-DoF
+boxes to the augmentation and the IoU loss.
 
 Batch layout (as in the JAX package): ``points`` [B, P, 3], ``point_feats``
 [B, P, C], ``point_valid`` [B, P]; in training also ``gt_boxes`` [B, M, 7],
@@ -27,7 +28,8 @@ from cnrma_torch.timing import mark
 
 class FCAF3DOnly(nn.Module):
     def __init__(self, in_channels: int = 32, n_classes: int = 18,
-                 n_reg_outs: int = 6, voxel_size: float = 0.01,
+                 n_reg_outs: int = 6, with_yaw: bool = False,
+                 voxel_size: float = 0.01,
                  pts_threshold: int = 200000, assigner_limit: int = 27,
                  assigner_topk: int = 18, nms_pre: int = 1000,
                  capacities: DetectionCapacities = DetectionCapacities(),
@@ -37,12 +39,13 @@ class FCAF3DOnly(nn.Module):
         self.use_feature_transform = use_feature_transform
         self.feature_transform = {**FEATURE_TRANSFORM,
                                   **(feature_transform or {})}
+        self.with_yaw = with_yaw
         # same submodule name as CNRMA's, so parameters move between stages
         self.detector = FCAF3DDetector(
             in_channels=in_channels, n_classes=n_classes,
             n_reg_outs=n_reg_outs, voxel_size=voxel_size,
             pts_threshold=pts_threshold, assigner_limit=assigner_limit,
-            assigner_topk=assigner_topk, nms_pre=nms_pre,
+            assigner_topk=assigner_topk, with_yaw=with_yaw, nms_pre=nms_pre,
             capacities=capacities)
 
     @torch.no_grad()
@@ -68,7 +71,8 @@ class FCAF3DOnly(nn.Module):
         if self.use_feature_transform:
             points, gt_boxes = augment_scenes(points, gt_boxes,
                                               self.feature_transform,
-                                              generator, aug_draws)
+                                              self.with_yaw, generator,
+                                              aug_draws)
         mark("augment")
         level_outs = self.detector(points, batch["point_feats"],
                                    batch["point_valid"])

@@ -1,8 +1,8 @@
 """Synthetic scenes and parameters for driving the port without a dataset or
 a checkpoint: bench.py's ring of cameras, a sphere TSDF, bench.py's
-parameter recipe, whole ScanNet scenes on disk (``write_scannet``) and
-stage-2 point dumps of them (``write_point_dumps``), all made from a
-seed."""
+parameter recipe, whole ScanNet and ARKitScenes scenes on disk
+(``write_scannet``, ``write_arkit``) and stage-2 point dumps of them
+(``write_point_dumps``), all made from a seed."""
 
 from __future__ import annotations
 
@@ -88,18 +88,24 @@ def room_boxes(extent: Sequence[float]) -> np.ndarray:
 
 
 def room_tsdf(dim: Sequence[int], voxel_size: float, extent: Sequence[float],
-              boxes: np.ndarray, trunc: float = 0.12) -> np.ndarray:
+              boxes: np.ndarray, trunc: float = 0.12,
+              yaw: Optional[Sequence[float]] = None) -> np.ndarray:
     """[X, Y, Z] TSDF (in units of ``trunc``, clipped to [-1, 1]; positive in
     free space) of a room of ``extent`` metres from the grid origin: its
-    floor, four walls 0.1 m inside the extent, and solid ``boxes``."""
+    floor, four walls 0.1 m inside the extent, and solid gravity-center
+    ``boxes`` [M, 6+], each turned by its ``yaw`` about +z if given."""
     axes = [(np.arange(n, dtype=np.float32) + 0.5) * voxel_size
             for n in dim]
     x, y, z = np.meshgrid(*axes, indexing="ij")
     ex, ey, _ = extent
     sdf = np.minimum.reduce([x - 0.1, ex - 0.1 - x, y - 0.1, ey - 0.1 - y,
                              z - 0.05])
-    for cx, cy, cz, dx, dy, dz in boxes[:, :6]:
-        q = np.stack([np.abs(x - cx) - dx / 2, np.abs(y - cy) - dy / 2,
+    yaw = np.zeros(len(boxes)) if yaw is None else yaw
+    for (cx, cy, cz, dx, dy, dz), a in zip(boxes[:, :6], yaw):
+        c, s = np.float32(np.cos(a)), np.float32(np.sin(a))
+        lx = c * (x - cx) + s * (y - cy)          # the box's own frame
+        ly = c * (y - cy) - s * (x - cx)
+        q = np.stack([np.abs(lx) - dx / 2, np.abs(ly) - dy / 2,
                       np.abs(z - cz) - dz / 2])
         outside = np.linalg.norm(np.maximum(q, 0.0), axis=0)
         box = outside + np.minimum(q.max(axis=0), 0.0)
@@ -192,11 +198,155 @@ def write_scannet(root: str, n_scenes: int = 2, n_frames: int = 60,
     return ann
 
 
+def axis_angle(R: np.ndarray) -> np.ndarray:
+    """Rotation matrix -> axis-angle vector (the inverse of
+    ``data.arkit.rodrigues``), through the unit quaternion."""
+    tr = np.trace(R)
+    if tr > 0:
+        w = np.sqrt(1.0 + tr) / 2
+        v = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0],
+                      R[1, 0] - R[0, 1]]) / (4 * w)
+    else:
+        i = int(np.argmax(np.diag(R)))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        q = np.sqrt(1.0 + R[i, i] - R[j, j] - R[k, k]) / 2
+        v = np.empty(3)
+        v[i] = q
+        v[j] = (R[j, i] + R[i, j]) / (4 * q)
+        v[k] = (R[k, i] + R[i, k]) / (4 * q)
+        w = (R[k, j] - R[j, k]) / (4 * q)
+    n = np.linalg.norm(v)
+    if n < 1e-12:
+        return np.zeros(3)
+    return 2 * np.arctan2(n, w) * v / n
+
+
+# ARKitScenes objects of a synthetic room: gravity-center box (position and
+# size as fractions of the room, z of its height), yaw, class id (0-16)
+_ARKIT_OBJECTS = ((0.30, 0.32, 0.20, 0.22, 0.12, 0.30, 0.45, 14),   # table
+                  (0.64, 0.35, 0.15, 0.07, 0.10, 0.30, -0.80, 13),  # chair
+                  (0.38, 0.70, 0.17, 0.30, 0.13, 0.33, 1.15, 16),   # sofa
+                  (0.75, 0.72, 0.33, 0.10, 0.22, 0.66, -0.30, 0),   # cabinet
+                  (0.55, 0.55, 0.10, 0.08, 0.06, 0.20, 2.40, 12))   # stool
+_ARKIT_SPLITS = {"Training": "arkit_infos_train.pkl",
+                 "Validation": "arkit_infos_val.pkl"}
+ARKIT_PINCAM = (256, 192, 212.0, 212.0, 127.5, 95.5)   # lowres_wide
+
+
+def arkit_room_boxes(extent: Sequence[float]) -> np.ndarray:
+    """[5, 8] yaw objects of a room of ``extent`` metres from the grid
+    origin: gravity-center (cx, cy, cz, dx, dy, dz), yaw and the ARKit
+    class id; non-square, turned by yaws that no multiple of pi/2 undoes."""
+    ex, ey, ez = (float(e) for e in extent)
+    h = min(ez, 3.0)
+    return np.array([(fx * ex, fy * ey, fz * h, sx * ex, sy * ey, sz * h,
+                      yaw, cls) for fx, fy, fz, sx, sy, sz, yaw, cls
+                     in _ARKIT_OBJECTS], np.float32)
+
+
+def write_arkit(root: str, n_scenes: int = 2, n_frames: int = 60,
+                seed: int = 0, split: str = "Validation",
+                tsdf_dim: Tuple[int, int, int] = (168, 152, 64),
+                voxel_size: float = 0.04,
+                image_size: Tuple[int, int] = ARKIT_PINCAM[:2]) -> str:
+    """Write ``n_scenes`` synthetic scenes in ARKitScenes' raw on-disk
+    layout, as ``data/arkit.py`` reads it, and return the infos file's
+    path (``arkit_infos_val.pkl`` for the ``Validation`` split,
+    ``arkit_infos_train.pkl`` for ``Training``):
+
+    * ``{split}/{scene}/{scene}_frames/lowres_wide/{scene}_{ts}.png``
+      (``image_size`` PNG frames of a smooth random pattern; ``ts`` the
+      frame's timestamp, 0.1 s apart, three decimals),
+      ``lowres_wide_intrinsics/{scene}_{ts}.pincam`` (a quarter of them
+      named 1 ms early and a quarter 1 ms late, as the reader's name
+      fallback allows) and ``lowres_wide.traj``: a world-to-camera
+      axis-angle pose for every frame, a third of them stamped 3 ms late
+      (the reader's ±5 ms fallback, each the only pose in its window), and
+      a pose between every two frames; cameras on a ring around the
+      room's centre, looking at it;
+    * ``atlas_tsdf/{scene}/tsdf_{04,08,16}.npz``: a room (floor, walls and
+      five yaw boxes) over ``tsdf_dim`` voxels at ``voxel_size``, its origin
+      off the world's;
+    * ``arkit_instance_data/{scene}_aligned_bbox.npy``: the GT boxes
+      (gravity-center z, yaw, class id last), for ``evaluate_bbox``;
+    * the infos pickle (``total_image_ids`` the timestamps, ``split``,
+      ``annos`` with 7-column ``gt_boxes_upright_depth`` and ``class``)."""
+    rng = np.random.RandomState(seed)
+    w, h = image_size
+    sx, sy = w / ARKIT_PINCAM[0], h / ARKIT_PINCAM[1]
+    pincam = (w, h, ARKIT_PINCAM[2] * sx, ARKIT_PINCAM[3] * sy,
+              ARKIT_PINCAM[4] * sx, ARKIT_PINCAM[5] * sy)
+    extent = np.asarray(tsdf_dim, np.float64) * voxel_size
+    gt_dir = os.path.join(root, "arkit_instance_data")
+    os.makedirs(gt_dir, exist_ok=True)
+    infos: List[dict] = []
+    for s in range(n_scenes):
+        scene = str(41254900 + 17 * s)
+        frames = os.path.join(root, split, scene, f"{scene}_frames")
+        for sub in ("lowres_wide", "lowres_wide_intrinsics"):
+            os.makedirs(os.path.join(frames, sub), exist_ok=True)
+        origin = np.round(rng.uniform(-4.0, -1.0, 3) * 25) / 25
+        origin[2] = -0.2
+        center = origin + np.array([extent[0] / 2, extent[1] / 2,
+                                    min(extent[2], 3.0) / 3])
+        radius = 0.3 * min(extent[0], extent[1])
+        base_ms = 5000000 + 37311 * (s + 1)
+        ids, traj = [], []
+        for i in range(2 * n_frames):       # frames at even i
+            ms = base_ms + 50 * i
+            a = 2 * np.pi * i / (2 * n_frames)
+            eye = center + radius * np.array([np.cos(a), np.sin(a), 0.3])
+            pose = np.linalg.inv(_look_at(eye, center))
+            late = 3 if i % 2 == 0 and i % 6 == 2 else 0
+            traj.append(f"{(ms + late) / 1000:.5f} "
+                        + " ".join(f"{x:.9f}" for x in axis_angle(
+                            pose[:3, :3]))
+                        + " " + " ".join(f"{x:.9f}" for x in pose[:3, 3]))
+            if i % 2:
+                continue
+            ts = f"{ms / 1000:.3f}"
+            ids.append(ts)
+            small = rng.randint(0, 255, (h // 16, w // 16, 3), np.uint8)
+            Image.fromarray(small).resize((w, h), Image.BILINEAR).save(
+                os.path.join(frames, "lowres_wide", f"{scene}_{ts}.png"))
+            shift = {1: -1, 2: 1}.get(i // 2 % 4, 0)
+            np.savetxt(os.path.join(
+                frames, "lowres_wide_intrinsics",
+                f"{scene}_{(ms + shift) / 1000:.3f}.pincam"),
+                np.asarray(pincam)[None], fmt="%.6f")
+        with open(os.path.join(frames, "lowres_wide.traj"), "w") as f:
+            f.write("\n".join(traj) + "\n")
+        boxes = arkit_room_boxes(extent)
+        tsdf_dir = os.path.join(root, "atlas_tsdf", scene)
+        os.makedirs(tsdf_dir, exist_ok=True)
+        for k in (1, 2, 4):
+            vs = voxel_size * k
+            np.savez_compressed(
+                os.path.join(tsdf_dir, f"tsdf_{int(round(vs * 100)):02d}.npz"),
+                origin=origin.astype(np.float32)[None], voxel_size=vs,
+                tsdf=room_tsdf([d // k for d in tsdf_dim], vs, extent, boxes,
+                               yaw=boxes[:, 6]))
+        world = boxes.copy()
+        world[:, :3] += origin
+        np.save(os.path.join(gt_dir, scene + "_aligned_bbox.npy"), world)
+        infos.append({
+            "scene": scene, "split": split, "total_image_ids": ids,
+            "annos": {"gt_num": len(world),
+                      "gt_boxes_upright_depth": world[:, :7].copy(),
+                      "class": world[:, 7].astype(np.int64)}})
+    ann = os.path.join(root, _ARKIT_SPLITS[split])
+    with open(ann, "wb") as f:
+        pickle.dump(infos, f)
+    return ann
+
+
 def room_surface_points(extent: Sequence[float], boxes: np.ndarray, n: int,
-                        rng: np.random.RandomState) -> np.ndarray:
+                        rng: np.random.RandomState,
+                        yaw: Optional[Sequence[float]] = None) -> np.ndarray:
     """[n, 3] points drawn uniformly (by area) on the surfaces of
     ``room_tsdf``'s room: its floor, four walls up to the room's height
-    (capped at 3 m) and the six faces of each gravity-center box [M, 6+]."""
+    (capped at 3 m) and the six faces of each gravity-center box [M, 6+],
+    turned by its ``yaw`` about +z if given."""
     ex, ey, ez = (float(e) for e in extent)
     h = min(ez, 3.0)
     # (axis of the plane, its coordinate, the low and high corners)
@@ -206,6 +356,7 @@ def room_surface_points(extent: Sequence[float], boxes: np.ndarray, n: int,
                             (1, 0.1, (0.1, 0.05), (ex - 0.1, h)),
                             (1, ey - 0.1, (0.1, 0.05), (ex - 0.1, h))):
         planes.append((axis, c, lo, hi))
+    n_room = len(planes)
     for cx, cy, cz, dx, dy, dz in boxes[:, :6]:
         ctr, half = np.array([cx, cy, cz]), np.array([dx, dy, dz]) / 2
         for axis in range(3):
@@ -225,19 +376,26 @@ def room_surface_points(extent: Sequence[float], boxes: np.ndarray, n: int,
         pts[m, axis] = c
         pts[m, rest[0]] = lo[0] + u[m, 0] * (hi[0] - lo[0])
         pts[m, rest[1]] = lo[1] + u[m, 1] * (hi[1] - lo[1])
+    for b, a in enumerate(() if yaw is None else yaw):
+        m = (which >= n_room + 6 * b) & (which < n_room + 6 * b + 6)
+        c, s = np.cos(a), np.sin(a)
+        ox, oy = pts[m, 0] - boxes[b, 0], pts[m, 1] - boxes[b, 1]
+        pts[m, 0] = boxes[b, 0] + c * ox - s * oy
+        pts[m, 1] = boxes[b, 1] + s * ox + c * oy
     return pts
 
 
 def write_point_dumps(root: str, points_dir: str, n_points: int = 600000,
-                      seed: int = 0) -> List[str]:
+                      seed: int = 0,
+                      ann_name: str = "scannet_infos_train.pkl") -> List[str]:
     """Write a stage-2.1 dump, ``{points_dir}/{scene}_vert.npy``, for each
-    scene of ``write_scannet``'s training split
-    (``{root}/scannet_infos_train.pkl``): ``n_points`` rows
-    of xyz on the room's GT surface (``room_surface_points``, its extent
-    from the scene's ``tsdf_04``) and 32 feature columns of N(0, 1), fp32,
-    drawn from ``seed``.  Returns the paths written."""
+    scene of the split ``{root}/{ann_name}`` (``write_scannet``'s training
+    split by default, or ``write_arkit``'s): ``n_points`` rows of xyz on the
+    room's GT surface (``room_surface_points``, its extent and origin from
+    the scene's ``tsdf_04``, yaw boxes turned) and 32 feature columns of
+    N(0, 1), fp32, drawn from ``seed``.  Returns the paths written."""
     rng = np.random.RandomState(seed)
-    with open(os.path.join(root, "scannet_infos_train.pkl"), "rb") as f:
+    with open(os.path.join(root, ann_name), "rb") as f:
         infos = sorted(pickle.load(f), key=lambda x: x["scene"])
     os.makedirs(points_dir, exist_ok=True)
     paths = []
@@ -246,9 +404,13 @@ def write_point_dumps(root: str, points_dir: str, n_points: int = 600000,
         with np.load(os.path.join(root, "atlas_tsdf", scene,
                                   "tsdf_04.npz")) as z:
             extent = np.asarray(z["tsdf"].shape) * float(z["voxel_size"])
+            origin = np.asarray(z["origin"], np.float32).reshape(3)
         boxes = np.asarray(info["annos"]["gt_boxes_upright_depth"],
-                           np.float32)
-        xyz = room_surface_points(extent, boxes, n_points, rng)
+                           np.float32).copy()
+        boxes[:, :3] -= origin
+        xyz = room_surface_points(extent, boxes, n_points, rng,
+                                  boxes[:, 6] if boxes.shape[1] > 6
+                                  else None) + origin
         feats = rng.randn(n_points, 32).astype(np.float32)
         path = os.path.join(points_dir, scene + "_vert.npy")
         np.save(path, np.concatenate([xyz, feats], axis=1))

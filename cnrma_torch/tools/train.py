@@ -1,5 +1,5 @@
-"""The train CLI of the port: any of the three stages of the ScanNet recipe
-over a dataset split.
+"""The train CLI of the port: any of the three stages of the ScanNet or
+ARKitScenes recipe over a dataset split.
 
     python -m cnrma_torch.tools.train CONFIG [--work-dir DIR]
         [--load-from CKPT | --resume-from CKPT] [--seed S] [--max-steps N]
@@ -20,6 +20,9 @@ dir.  The three configs of the recipe (``doc/train_val.md``):
   points a stage-2.1 dump wrote (``data.train.points_dir``);
 * ``configs/ray_marching_scannet.py``: stage 3, ``CNRMA`` from the merge
   of the two (``python -m cnrma_torch.tools.combine_models``).
+
+ARKit's configs (``atlas_recon_arkit.py``, ``fcaf3d_middle_arkit.py``,
+``ray_marching_arkit.py``) run the same stages with the 7-DoF yaw detector.
 
 The config's ``backbone2d.pretrained`` R-50 (a reference ``.pth``) is read
 into the 2D tower when the file exists, through ``convert.py``, and the

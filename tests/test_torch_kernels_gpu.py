@@ -27,7 +27,7 @@ import torch
 
 from cnrma_torch.ops import backproject as bp
 from cnrma_torch.ops import ray_marching as rm
-from cnrma_torch.synthetic import ring_projections, sphere_tsdf
+from cnrma_torch.synthetic import ring_projections, sphere_tsdf, write_arkit
 from cnrma_torch.tools import bp_probe, feature_probe, gather_probe
 
 pytestmark = pytest.mark.gpu
@@ -165,6 +165,59 @@ def test_volume_backward_kernel_at_a_rotated_stage1_crop(cuda, dtype,
     valid = torch.from_numpy(sample["view_valid"])
     pairs, direct = _volume_bwd_check(cuda, dtype, proj, feats, valid, dim,
                                       cfg.model.voxel_size, (0.0, 0.0, 0.0))
+    assert pairs > 0 and 0 <= direct <= pairs
+
+
+@pytest.fixture(scope="module")
+def arkit_scene(tmp_path_factory):
+    """A synthetic ARKit scene of 40 frames of 256x192 (``write_arkit``)."""
+    root = str(tmp_path_factory.mktemp("arkit"))
+    ann = write_arkit(root, n_scenes=1, n_frames=40)
+    return root, ann
+
+
+def _arkit_sample(root, ann, split):
+    """The ``configs/ray_marching_arkit.py`` reader's sample of the scene in
+    ``split`` (its ``middle`` space, 40 views resized to 480x640), and the
+    config's voxel grid and size."""
+    from cnrma_torch.core.builder import build_dataset
+    from cnrma_torch.core.config import Config
+    cfg = Config.fromfile("configs/ray_marching_arkit.py")
+    cfg.merge_from_options({f"data.{split}.data_root": root,
+                            f"data.{split}.ann_file": ann})
+    sample = build_dataset(cfg, split, seed=0)[0]
+    proj = sample["projection"].copy()
+    proj[:, :2, :] /= 4
+    dim = tuple(cfg.model["voxel_dim_" + split])
+    assert dim == (192, 192, 80) and sample["imgs"].shape == (40, 480, 640, 3)
+    return proj, torch.from_numpy(sample["view_valid"]), dim, \
+        cfg.model.voxel_size
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_volume_kernel_at_the_arkit_test_shape(cuda, dtype, arkit_scene):
+    """K1 at ARKit's test shape: 40 views of [120, 160, 32] features over
+    the 192x192x80 grid, placed by the ARKit reader's ``middle`` space on a
+    synthetic scene (fp32, the config's dtype, and bf16)."""
+    proj, valid, dim, vs = _arkit_sample(*arkit_scene, "test")
+    feats = torch.from_numpy(np.random.RandomState(4).rand(
+        40, 120, 160, 32).astype(np.float32))
+    ok = _volume_check(cuda, dtype, proj, feats, valid, dim, vs,
+                       (0.0, 0.0, 0.0))
+    assert ok.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_volume_backward_kernel_at_the_arkit_training_shape(cuda, dtype,
+                                                            arkit_scene):
+    """K1b at ARKit's training shape: the training split's sample of the
+    same scene (40 views of [120, 160, 32], 192x192x80), fp32 as the
+    config trains and bf16."""
+    proj, valid, dim, vs = _arkit_sample(*arkit_scene, "train")
+    feats = torch.from_numpy(np.random.RandomState(5).rand(
+        40, 120, 160, 32).astype(np.float32))
+    pairs, direct = _volume_bwd_check(cuda, dtype, proj, feats, valid, dim,
+                                      vs, (0.0, 0.0, 0.0))
     assert pairs > 0 and 0 <= direct <= pairs
 
 

@@ -2,7 +2,8 @@
 unavailable, as on a GPU machine that has none of them: a tiny forward,
 then the test CLI, ``nms_bbox`` and ``evaluate_bbox`` on one tiny synthetic
 scene, and one step of the train CLI on it, whose checkpoint the test CLI
-loads; and the three-stage recipe on such a scene, one step a stage."""
+loads; the three-stage recipe on such a scene, one step a stage; and the
+ARKit yaw path on a tiny synthetic ARKitScenes scene."""
 
 import os
 import subprocess
@@ -24,7 +25,7 @@ import cnrma_torch.tools.bp_probe, cnrma_torch.tools.feature_probe
 import cnrma_torch.tools.gather_probe, cnrma_torch.tools.trace_check
 import cnrma_torch.tools.stage_times
 import cnrma_torch.capacity, cnrma_torch.core.builder, cnrma_torch.core.config
-import cnrma_torch.core.registry
+import cnrma_torch.core.registry, cnrma_torch.data.arkit
 import cnrma_torch.data.scannet, cnrma_torch.data.transforms
 import cnrma_torch.eval.indoor_eval, cnrma_torch.geometry.boxes
 import cnrma_torch.geometry.tsdf, cnrma_torch.ops.iou3d, cnrma_torch.ops.nms
@@ -37,6 +38,7 @@ import cnrma_torch.ops.losses
 import cnrma_torch.convert, cnrma_torch.data.points_dataset
 import cnrma_torch.eval.mesh_eval, cnrma_torch.models.fcaf3d_only
 import cnrma_torch.tools.combine_models, cnrma_torch.tools.evaluate_mesh
+import cnrma_torch.tools.overflow_survey
 import chip_smoke
 from cnrma_torch.models.cn_rma import CNRMA
 from cnrma_torch.models.fcaf3d import DetectionCapacities
@@ -114,12 +116,27 @@ print("NO_JAX_OK")
 """
 
 
-def test_port_runs_without_jax():
+# The scripts' torch and BLAS threads: the test lane runs six pytest
+# workers on eight cores, each with its own torch and XLA thread pools, and
+# a child with a thread a core ran 15 times slower there than alone (the
+# recipe took 21 s alone and hit its 300 s limit in the lane).
+CHILD_THREADS = "2"
+
+
+def _run(script: str) -> subprocess.CompletedProcess:
+    """``script`` in a fresh interpreter from the repository's root, its
+    threads capped at ``CHILD_THREADS``, within 300 s."""
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
-    proc = subprocess.run(
-        [sys.executable, "-c", _SCRIPT.replace("REPO", repr(REPO))],
+    env.update(OMP_NUM_THREADS=CHILD_THREADS, MKL_NUM_THREADS=CHILD_THREADS,
+               OPENBLAS_NUM_THREADS=CHILD_THREADS)
+    return subprocess.run(
+        [sys.executable, "-c", script.replace("REPO", repr(REPO))],
         capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
+
+
+def test_port_runs_without_jax():
+    proc = _run(_SCRIPT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "NO_JAX_OK" in proc.stdout
 
@@ -210,10 +227,87 @@ def test_three_stage_recipe_runs_without_jax():
     (``configs/fcaf3d_middle_scannet.py`` on synthetic dumps), the merge,
     one stage-3 step from it and the test CLI on its checkpoint, at cut
     sizes on the CPU with JAX, flax and the JAX package blocked."""
-    env = dict(os.environ)
-    env.pop("PYTHONPATH", None)
-    proc = subprocess.run(
-        [sys.executable, "-c", _RECIPE.replace("REPO", repr(REPO))],
-        capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
+    proc = _run(_RECIPE)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "RECIPE_OK" in proc.stdout
+
+
+_ARKIT = """
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "cnrma_tpu"):
+    sys.modules[name] = None          # any import of them raises
+sys.path.insert(0, REPO)
+import atexit, os, shutil, tempfile
+import numpy as np
+from cnrma_torch.synthetic import write_arkit
+from cnrma_torch.tools import evaluate_bbox, nms_bbox
+from cnrma_torch.tools import test as test_cli, train as train_cli
+cfg = lambda name: os.path.join(REPO, "configs", name)
+root = tempfile.mkdtemp()
+atexit.register(shutil.rmtree, root, ignore_errors=True)
+data = os.path.join(root, "data")
+val = write_arkit(data, n_scenes=1, n_frames=3, tsdf_dim=(48, 40, 32),
+                  image_size=(128, 96))
+train = os.path.join(data, "arkit_infos_train.pkl")
+shutil.copy(val, train)
+views = ["num_frames=2", "image_size=(64,64)", "voxel_dim=(32,32,16)",
+         f"data_root={data}"]
+small = ["model.ray_samples=32", "model.rays_per_view_cap=256",
+         "model.max_points=512",
+         "model.capacities={'voxelize':2048,'stride2':1024,'stride4':512,"
+         "'levels':(256,128,64,32),'neck':(512,256,128)}"]
+test = [f"data.test.{o}" for o in views] + [
+    "model.voxel_dim_test=(32,32,16)",
+    "model.detection_head.test_cfg.nms_pre=16"]
+scene = "41254900"
+
+# the test CLI -> rotated NMS -> rotated mAP
+res = os.path.join(root, "res")
+test_cli.main([cfg("ray_marching_arkit.py"), "--device", "cpu", "--save-path",
+               res, "--cfg-options", *test, f"data.test.ann_file={val}",
+               *small])
+raw = np.load(os.path.join(res, scene, scene + "_bbox_raw.npz"))
+assert raw["bboxes"].shape[1] == 7 and raw["scores"].shape[1] == 17
+assert len(raw["bboxes"]) > 0 and np.isfinite(raw["bboxes"]).all()
+nms_bbox.main(["--result_path", res, "--device", "cpu"])
+kept = np.load(os.path.join(res, scene, scene + "_atlas_bbox.npz"))
+assert kept["boxes"].shape[1] == 7
+m = evaluate_bbox.main(["--dataset", "arkit", "--data_path", data,
+                        "--result_path", res, "--device", "cpu"])
+assert {"mAP_0.25", "mAP_0.50", "table_AP_0.25"} <= set(m)
+
+# the stage-2.1 dump feeds one stage-2 step, then one stage-3 step
+mid = os.path.join(root, "mid")
+test_cli.main([cfg("arkit_middle.py"), "--device", "cpu", "--save-path",
+               os.path.join(root, "res21"), "--middle-save-path", mid,
+               "--cfg-options", *test, f"data.test.ann_file={train}", *small])
+assert len(np.load(os.path.join(mid, scene + "_vert.npy"))) > 0
+run = lambda *a: ["--device", "cpu", "--max-steps", "1", "--work-dir",
+                  os.path.join(root, *a), "--cfg-options"]
+rec, _ = train_cli.main([
+    cfg("fcaf3d_middle_arkit.py"), *run("s2"), f"data.train.data_root={data}",
+    f"data.train.ann_file={train}", f"data.train.points_dir={mid}",
+    "data.train.num_points=400", *small[-1:]])
+assert all(np.isfinite(v) for v in rec[0]["log_vars"].values())
+rec, _ = train_cli.main([
+    cfg("ray_marching_arkit.py"), *run("s3"),
+    *[f"data.train.{o}" for o in views], f"data.train.ann_file={train}",
+    "model.voxel_dim_train=(32,32,16)", *small])
+assert {"loss_bbox", "loss_cls", "tsdf_loss_004"} <= set(rec[0]["log_vars"])
+assert all(np.isfinite(v) for v in rec[0]["log_vars"].values())
+loaded = [m for m in ("jax", "flax", "cnrma_tpu") if sys.modules.get(m)]
+assert not loaded, loaded
+print("ARKIT_OK")
+"""
+
+
+def test_arkit_path_runs_without_jax():
+    """The ARKit yaw path at cut sizes on the CPU with JAX, flax and the JAX
+    package blocked: the test CLI on ``configs/ray_marching_arkit.py`` (7-column
+    raw boxes, 17 classes), ``nms_bbox`` and ``evaluate_bbox --dataset
+    arkit``; the stage-2.1 dump of ``configs/arkit_middle.py`` and one
+    stage-2 step on it (``configs/fcaf3d_middle_arkit.py``); one stage-3
+    step (finite losses, ``loss_bbox`` the rotated IoU's)."""
+    proc = _run(_ARKIT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "ARKIT_OK" in proc.stdout

@@ -227,24 +227,33 @@ def test_builder_knobs(options, monkeypatch):
     assert not model.training
 
 
-def test_builder_refuses_later_items():
-    """The ARKit yaw detector and reader are refused, naming their ROADMAP
-    item; the stage-1 and stage-2 models build (they were refused until
-    they were ported)."""
+def test_builder_refuses_later_items(tmp_path):
+    """Depth marching is refused, naming its ROADMAP queue; the ARKit yaw
+    detector and reader, the stage-1 and the stage-2 models build (each
+    was refused until it was ported)."""
     from cnrma_torch.core import builder as t_builder
     from cnrma_torch.core.config import Config as TConfig
-    from cnrma_torch.models.cn_rma import Atlas
+    from cnrma_torch.data.arkit import AtlasARKitDataset
+    from cnrma_torch.models.cn_rma import CNRMA, Atlas
     from cnrma_torch.models.fcaf3d_only import FCAF3DOnly
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_builder.build_model(TConfig.fromfile("configs/ray_marching_arkit.py"))
+    from cnrma_torch.synthetic import write_arkit
+    depth = TConfig.fromfile("configs/ray_marching_arkit.py")
+    depth.merge_from_options({"model.ray_marching_type": "depth"})
+    with pytest.raises(NotImplementedError, match="depth.*ROADMAP"):
+        t_builder.build_model(depth)
+    arkit = TConfig.fromfile("configs/ray_marching_arkit.py")
+    model = t_builder.build_model(arkit)
+    assert type(model) is CNRMA and model.with_yaw and model.detector.with_yaw
     for cfg, cls in (("configs/atlas_recon_scannet.py", Atlas),
                      ("configs/fcaf3d_middle_scannet.py", FCAF3DOnly)):
         assert type(t_builder.build_model(TConfig.fromfile(cfg))) is cls
     train = t_builder.build_model(TConfig.fromfile(CONFIG), mode="train")
     assert train.training and train.voxel_dim == (192, 192, 80)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_builder.build_dataset(TConfig.fromfile(
-            "configs/ray_marching_arkit.py"), "test")
+    ann = write_arkit(str(tmp_path), n_scenes=1, n_frames=2,
+                      tsdf_dim=(16, 16, 8), image_size=(32, 24))
+    data = t_builder.build_dataset(arkit, "test", data_root=str(tmp_path),
+                                   ann_file=ann)
+    assert type(data) is AtlasARKitDataset and data.with_yaw
 
 
 # --- marching cubes, TSDF, PLY ---------------------------------------------

@@ -180,6 +180,30 @@ def test_decode_bbox_yaw_guard():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
 
 
+def test_decode_bbox_overflow_rows():
+    """Face distances past fp32 decode to the same infinite boxes in both
+    packages; ``overflowed_rows`` counts exactly those rows and refuses any
+    other value that is not finite."""
+    from cnrma_torch.tools.overflow_survey import overflowed_rows
+    rng = np.random.RandomState(10)
+    pts = rng.randn(12, 3).astype(np.float32)
+    reg = rng.randn(12, 6).astype(np.float32)
+    reg[2, 0] = 90.0                    # one face of x: x is -inf
+    reg[5, [2, 3]] = 95.0               # both faces of y: y is NaN
+    reg[7, 5] = 200.0                   # one face of z: z is +inf
+    with np.errstate(over="ignore"):
+        pred = np.exp(reg)
+    want = np.asarray(jdet.decode_bbox(jnp.asarray(pts), jnp.asarray(pred)))
+    got = tdet.decode_bbox(_t(pts), _t(pred)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    assert overflowed_rows(got) == 3
+    assert overflowed_rows(got[np.isfinite(got).all(axis=1)]) == 0
+    for row, col, value in ((0, 4, np.nan), (1, 0, np.inf), (3, 5, -np.inf)):
+        broken = got.copy()
+        broken[row, col] = value
+        assert overflowed_rows(broken) is None
+
+
 # DetectionCapacities.tiny(); the coarsest level holds one voxel, so levels
 # 2, 1, 0 have 8, 64, 512 children, all within the neck capacities when the
 # point threshold does not cut them
