@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain torch version at the full ScanNet and ARKit
-shapes, drives the CN-RMA test-mode forward, the test CLI, the train CLI,
-the three-stage training recipe and the ARKit yaw path at full width, and
-checks small inputs against the CPU reference path.
+shapes, drives the CN-RMA test-mode forward (NeuS and depth marching), the
+test CLI, the train CLI with its mid-training evaluation, the three-stage
+training recipe and the ARKit yaw path at full width, checks small inputs
+against the CPU reference path, and runs the whole-model learning check on
+synthetic rooms.
 
     python3 chip_smoke.py
 
@@ -30,6 +32,12 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
   5b. surface: the same model's ray march and detector on a planted ball
      TSDF, so that points and boxes come out at full size; the ray-march
      stage alone beside them.
+  depth. the same forward with ``ray_marching_type='depth'``
+     (``depth_points`` 2): K1 once and K2 never, outputs finite, its time
+     and peak memory; the depth march alone on the planted ball for
+     ``depth_points`` 2 and 0 (kept points, finite boxes, its milliseconds
+     with no host sync, its peak memory); a tiny fp32 scene's depth march
+     on the card against the CPU's, as kept sets.
   6. reference: a tiny scene in fp32 on the GPU (kernels) and on the CPU
      (plain versions), same parameters and draw; TSDFs, points and boxes
      must agree.
@@ -65,16 +73,22 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
      steps from default-initialised weights: each loss, the gradient norm,
      the step's and the reader wait's seconds, the peak memory and the
      step's stage times (CUDA events marked inside the train loop) per
-     step, all finite; K1, K1b and K2 once a step; one backward of the
-     reconstruction losses alone must reach the 2D tower; the test CLI on
-     one scene from the checkpoint written.
+     step, all finite; K1, K1b and K2 once a step; the mid-training
+     evaluation at the stop by ``--max-steps``: the val split (the same two
+     scenes) scored at the config's test grid (256x256x96, read by a hook
+     on the test twin's TSDF head), K1 and K2 once a scene, its losses and
+     mAP and seconds printed, ``best.pt`` with a finite ``val_total_loss``
+     and an mAP in [0, 1]; one backward of the reconstruction losses alone
+     must reach the 2D tower; the test CLI on one scene from ``best.pt``.
   6f. the three-stage recipe (``doc/train_val.md``) on two synthetic
      ScanNet scenes (60 frames of 1296x968 JPEG) written under ``build/``:
      stage 1, the train CLI on ``configs/atlas_recon_scannet.py`` for 3
      steps at its full width (50 views of 480x640, the 160x160x64 grid,
      ``recon_random`` crops, bf16, Adam) from the CLI's default
      initialisation, with K1 and K1b once a step and the missing R-50
-     reported as 0 tensors loaded; K1b against its plain version at stage
+     reported as 0 tensors loaded, and its evaluation on a val split read
+     as its test split (``recon_test``, 256x256x96, 50 views; losses
+     only); K1b against its plain version at stage
      1's shape (the reader's rotated crop, bf16, phase 6c's tolerance), its
      time and pairs off its window; the stage-1 checkpoint through the
      test CLI (the config's 256x256x96 test grid, views cut from 500 to 50)
@@ -100,11 +114,17 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
      4000 boxes of one class timed (its keep mask held against the CPU's
      on 1000), points and boxes on a planted ball, one scene's capacity
      lines; 3 stage-3 steps of the train CLI at full width (finite losses
-     and gradient norms, K1, K1b and K2 once a step); 3 stage-2 steps on
+     and gradient norms, K1, K1b and K2 once a step) and its evaluation of
+     the val split at 192x192x80 (losses and rotated mAP); 3 stage-2 steps on
      ``configs/fcaf3d_middle_arkit.py`` at 500,000 points on the rooms'
      surfaces, each with positives for the rotated IoU loss; K1 and K2 at
      the ARKit test shape and K1b at its training shape against their
      plain versions, timed (their device times in phase 8).
+  learn. ``python -m cnrma_torch.tools.overfit_full``, ScanNet-style and
+     ``--yaw``: the tiny CNRMA trained on two synthetic rooms, one scene a
+     step; the first and last total and reconstruction losses, mAP@0.25
+     and @0.50, seconds a step, peak memory, the launches; fails unless
+     the tool's PASS rule holds.
   7. probes: first the dot kernel on random integers in [-4, 4] at the
      probe's 128x256x128 (exact in fp32, tolerance 0; the probe's own
      all-ones input cannot see a permuted row or column); then the three
@@ -120,14 +140,15 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
      call's device work), and the launch floor (``floor_ms``, on every
      row: the device time of an empty kernel, one block of 32 threads);
      then K1b at stage 1's shape and K1, K2 and K1b at ARKit's, beside the
-     floor; last, because a profiler session slows the host's later
-     launches.
+     floor and, for K1b, ``index_add_``'s device time; last, because a
+     profiler session slows the host's later launches.
 Every kernel row carries its bound: the larger of the bytes its function
 must move (each input read once, each output written once, counted from
 this run's data) over 3.35 TB/s and its operations over the peak rate of
 their type (H100 SXM data sheet).  Its ``ms`` is CUDA events around one
 call, so it holds the host's launch work, which dominates calls under
-~0.1 ms; ``device_ms`` leaves that out.  The line before the last is the
+~0.1 ms; ``device_ms`` leaves that out.  Before the kernel table, a line
+gives the script's seconds so far; the line before the last is the
 kernel table as JSON; the last line is the device record.
 """
 
@@ -658,6 +679,143 @@ def phase_surface(dev, model, batch) -> None:
                              "non-finite values")
 
 
+def _depth_kept(pts, o, d, w):
+    """A scene's kept depth-march points as arrays on the host ordered by
+    (view, pixel, distance along the pixel's ray): (view and pixel ids,
+    weights, positions)."""
+    keep = (pts.weight > 0).cpu()
+    view = pts.view.cpu()[keep].long()
+    uv = pts.uv.cpu()[keep].long()
+    xyz = pts.xyz.cpu()[keep]
+    pix = uv[:, 1] * w + uv[:, 0]
+    t = ((xyz - o.cpu()[view]) * d.cpu()[view, pix]).sum(-1)
+    order = np.lexsort((t.numpy(), pix.numpy(), view.numpy()))
+    return (torch.stack([view, pix], 1)[order], pts.weight.cpu()[keep][order],
+            xyz[order])
+
+
+def _depth_against_cpu(dev) -> None:
+    """The depth march of a tiny fp32 scene on the card against the same
+    function on the CPU, as kept sets (ROADMAP F6): 3 views of [16, 24]
+    rays through a planted 16^3 ball, 300 samples, for ``depth_points`` 2
+    and 0; view, pixel and weight equal, positions within 1e-5."""
+    from cnrma_torch.ops import ray_marching as rm
+    dims, vs = (16, 16, 16), 0.1
+    ii = np.stack(np.meshgrid(*[np.arange(n) for n in dims], indexing="ij"),
+                  -1).astype(np.float32) * vs
+    ball = np.clip((np.linalg.norm(ii - np.array([0.8, 0.75, 0.85]), axis=-1)
+                    - 0.45) / (3 * vs), -1, 1).astype(np.float32)
+    projs = []
+    for x in (0.75, 0.6, 0.9):
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, 3] = [x, 0.7, -0.6]
+        intr = np.array([[16.0, 0, 12], [0, 16.0, 8], [0, 0, 1]], np.float32)
+        projs.append(intr @ np.linalg.inv(pose)[:3])
+    proj = torch.from_numpy(np.stack(projs).astype(np.float32))
+    tsdf, valid = torch.from_numpy(ball), torch.ones(3, dtype=torch.bool)
+    o, d = rm.get_ray_parameters(proj, 16, 24)
+    for dp in (2, 0):
+        args = (dims, vs, (0.0, 0.0, 0.0), 16, 24)
+        want = _depth_kept(rm.ray_march_depth_scene(
+            proj, tsdf, valid, *args, depth_points=dp, capacity=4096),
+            o, d, 24)
+        got = _depth_kept(rm.ray_march_depth_scene(
+            proj.to(dev), tsdf.to(dev), valid.to(dev), *args,
+            depth_points=dp, capacity=4096), o, d, 24)
+        same = (len(got[0]) == len(want[0]) > 0
+                and torch.equal(got[0], want[0])
+                and torch.equal(got[1], want[1]))
+        err = float((got[2] - want[2]).abs().max()) if same else float("nan")
+        log(f"[depth] tiny fp32 scene, depth_points {dp}, GPU vs CPU: "
+            f"{len(got[0])} vs {len(want[0])} kept points, sets equal "
+            f"{same}, positions max|err| {err:.3g} (tol 1e-5)")
+        if not same or not err <= 1e-5:
+            raise AssertionError(f"the depth march on the card disagrees "
+                                 f"with the CPU (depth_points {dp})")
+
+
+def phase_depth(dev, model, batch) -> None:
+    """The test forward with ``ray_marching_type='depth'`` at full_ship
+    (bf16, bench.py's synthesized parameters, ``depth_points`` 2): K1
+    launched once and K2 never, outputs finite, the warm forward's time
+    and peak memory beside NeuS's; then for ``depth_points`` 2 and 0 the
+    depth march alone on the planted ball of phase 5b (its kept points, the
+    detector's boxes finite, the stage's milliseconds without a host sync,
+    its peak memory over its inputs); then the tiny GPU-against-CPU
+    check."""
+    from cnrma_torch.ops.backproject import VOLUME_ACCUM
+    from cnrma_torch.ops.ray_marching import RAY_MARCH
+    t_phase = time.perf_counter()
+    model.ray_marching_type, model.depth_points = "depth", 2
+
+    def forward():
+        return model(batch, generator=torch.Generator(device=dev)
+                     .manual_seed(0))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        VOLUME_ACCUM.launches = RAY_MARCH.launches = 0
+        out = forward()
+        torch.cuda.synchronize()
+        launches = {"volume_accum": VOLUME_ACCUM.launches,
+                    "ray_march": RAY_MARCH.launches}
+        peak = torch.cuda.max_memory_allocated()
+        finite = all(bool(torch.isfinite(t).all()) for t in (
+            out["bboxes"], out["scores"], out["tsdf"]["scene_tsdf_004"]))
+        times = []
+        for _ in range(4):               # one warm-up, then three timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        log(f"[depth] full_ship bf16 forward, depth_points 2: launches "
+            f"{launches}; kept points {int(out['points'].valid.sum())}, "
+            f"valid boxes {int(out['bbox_valid'].sum())}, outputs finite "
+            f"{finite}; warm forward median of 3 "
+            f"{statistics.median(times[1:]) * 1e3:.1f} ms ("
+            f"{', '.join(f'{t * 1e3:.1f}' for t in times[1:])}); peak "
+            f"memory {peak / 2 ** 30:.2f} GiB")
+        if launches != {"volume_accum": 1, "ray_march": 0} or not finite:
+            raise AssertionError(f"the depth forward must launch K1 once, K2 "
+                                 f"never, with finite outputs: {launches}")
+        del out
+        tsdf = planted_ball(dev)[None]
+        with torch.no_grad():
+            feats = model.extract_2d(batch["imgs"])
+            for dp in (2, 0):
+                model.depth_points = dp
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                pts = model.ray_march(feats, batch["projection"],
+                                      batch["view_valid"], tsdf,
+                                      torch.Generator(device=dev).manual_seed(0))
+                torch.cuda.synchronize()
+                stage_peak = torch.cuda.max_memory_allocated() - base
+                xyz = pts.xyz + batch["offset"][:, None, :]
+                bboxes, scores, bvalid = model.detector.get_bboxes(
+                    model.detector(xyz, pts.feats, pts.valid))
+                n_points, n_boxes = int(pts.valid.sum()), int(bvalid.sum())
+                ms = ray_stage(dev, model, batch, feats, tsdf,
+                               f"depth {dp}")
+                finite = all(bool(torch.isfinite(t).all())
+                             for t in (pts.xyz, pts.feats, bboxes, scores))
+                log(f"[depth {dp}] planted ball: kept points {n_points} of "
+                    f"{model.max_points}; valid boxes {n_boxes}, finite "
+                    f"{finite}; depth march {ms:.3f} ms; its peak memory "
+                    f"over its inputs {stage_peak / 2 ** 30:.3f} GiB")
+                if not finite or n_points == 0 or n_boxes == 0:
+                    raise AssertionError(f"depth march on a planted surface "
+                                         f"(depth_points {dp}): no points, "
+                                         f"no boxes or non-finite values")
+                del pts, xyz, bboxes, scores, bvalid
+        _depth_against_cpu(dev)
+    finally:
+        model.ray_marching_type, model.depth_points = "neus", 2
+    log(f"[depth] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_reference(dev) -> None:
     from cnrma_torch.models.cn_rma import CNRMA
     from cnrma_torch.models.fcaf3d import DetectionCapacities
@@ -1061,7 +1219,8 @@ def index_add_library(args):
     """The one PyTorch call that computes the volume backward:
     ``Tensor.index_add_`` of every valid (voxel, view) pair's row
     ``g / cnt`` into the zeroed [V * h * w, 32] at its pixel, the pairs'
-    pixel ids and rows made beforehand."""
+    pixel ids and rows made beforehand, in the rows' dtype (bf16 sums in
+    bf16 there)."""
     from cnrma_torch.ops import backproject as bp
     proj, g, cnt, ok, (h, w), dim, vs, origin, dtype = args
     g_sum = bp._sum_cotangent(g, cnt)
@@ -1073,8 +1232,8 @@ def index_add_library(args):
         src.append(idx)
     dst, rows = torch.cat(dst), g_sum[torch.cat(src)]
     n_pix = proj.shape[0] * h * w
-    return lambda: torch.zeros(n_pix, 32, device=g.device).index_add_(
-        0, dst, rows)
+    return lambda: torch.zeros(n_pix, 32, device=g.device,
+                               dtype=rows.dtype).index_add_(0, dst, rows)
 
 
 def phase_volume_backward(dev) -> dict:
@@ -1356,6 +1515,74 @@ def _test_forward_tsdf(cfg, data: str, ann: str, ckpts, written, dev):
     return diffs
 
 
+@contextlib.contextmanager
+def _eval_grids():
+    """The grids the train CLI's val evaluations run at inside the block:
+    the fine TSDF shape of each test forward of its test twin, read by a
+    hook on the twin's TSDF head."""
+    from cnrma_torch.tools import train as train_cli
+    grids = []
+    evaluate = train_cli.evaluate_split
+
+    def probe(model, *args, **kw):
+        hook = None
+        if hasattr(model, "tsdf_head"):
+            key = f"scene_tsdf_{model.tsdf_head.keys[-1]}"
+            hook = model.tsdf_head.register_forward_hook(
+                lambda m, i, o: grids.append(tuple(o[key].shape[1:])))
+        try:
+            return evaluate(model, *args, **kw)
+        finally:
+            if hook is not None:
+                hook.remove()
+    train_cli.evaluate_split = probe
+    try:
+        yield grids
+    finally:
+        train_cli.evaluate_split = evaluate
+
+
+def _check_val(tag: str, records, grids, grid, n_scenes: int, metric: str,
+               work_dir: str) -> str:
+    """The train CLI's evaluation at its stop by ``--max-steps``: a val
+    record with finite scores, each of the ``n_scenes`` val scenes scored
+    at ``grid`` (the config's test grid), and ``best.pt`` with a finite
+    ``val_total_loss`` and, for ``metric='mAP'``, ``0 <= val_mAP_0.25 <=
+    1``; logs the scores and the seconds the evaluation took beside the
+    steps'.  Returns the path of ``best.pt``.  The CLI's warn-and-skip of
+    a missing val split fails here."""
+    from cnrma_torch.train.state import read_checkpoint
+    evals = [r for r in records if "val" in r]
+    if not evals:
+        raise AssertionError(f"[{tag}] no val record: the evaluation did "
+                             f"not run")
+    rec = evals[-1]
+    steps_s = sum(r["step_s"] for r in records)
+    log(f"[{tag}] val at step {rec['step']}: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in rec["val"].items())
+        + f"; evaluation {rec['eval_s']:.2f} s for {n_scenes} scenes "
+        f"({rec['eval_s'] / n_scenes:.2f} s a scene; the {len(records)} "
+        f"steps {steps_s:.2f} s, the evaluation "
+        f"{rec['eval_s'] / (rec['eval_s'] + steps_s):.1%} of both); "
+        f"scored at {sorted(set(grids))}")
+    if not all(math.isfinite(v) for v in rec["val"].values()):
+        raise AssertionError(f"[{tag}] val scores not finite")
+    if len(grids) != n_scenes * len(evals) or set(grids) != {tuple(grid)}:
+        raise AssertionError(f"[{tag}] the val split must be scored at the "
+                             f"test grid {tuple(grid)}, a forward a scene: "
+                             f"{grids}")
+    best = os.path.join(work_dir, "best.pt")
+    meta = read_checkpoint(best)["meta"]
+    log(f"[{tag}] best.pt: {meta}")
+    ok = math.isfinite(meta["val_total_loss"]) and meta["eval_metric"] \
+        == metric
+    if metric == "mAP":
+        ok = ok and 0.0 <= meta["val_mAP_0.25"] <= 1.0
+    if not ok:
+        raise AssertionError(f"[{tag}] best.pt's meta: {meta}")
+    return best
+
+
 def phase_train_cli(dev) -> dict:
     """The user's training loop on the card: ``python -m
     cnrma_torch.tools.train configs/ray_marching_scannet.py --max-steps 3``
@@ -1365,10 +1592,13 @@ def phase_train_cli(dev) -> dict:
     (``--load-from``); per step each loss, the gradient norm, the step's
     and the reader wait's seconds, the peak memory and the stage times
     (``timing.stage_marks`` in the train loop); K1, K1b and K2 once
-    a step; then one backward of the reconstruction losses alone, which
-    must reach the 2D tower (through K1b); then the test CLI on one scene
-    from the checkpoint the train CLI wrote, whose TSDF must be this
-    process's test forward of that checkpoint.  Returns the launches."""
+    a step; the mid-training evaluation at the stop by ``--max-steps``:
+    the val split (the same two scenes, 50 views) scored at the config's
+    test grid, 256x256x96, losses and mAP, K1 and K2 once a scene, and
+    ``best.pt``; then one backward of the reconstruction losses alone,
+    which must reach the 2D tower (through K1b); then the test CLI on one
+    scene from ``best.pt``, whose TSDF must be this process's test forward
+    of that checkpoint.  Returns the launches."""
     from cnrma_torch.core.builder import build_dataset, build_model
     from cnrma_torch.core.config import Config
     from cnrma_torch.data.loader import collate_scenes
@@ -1396,15 +1626,17 @@ def phase_train_cli(dev) -> dict:
             f"TSDF and boxes) and a default-initialised checkpoint in "
             f"{time.perf_counter() - t0:.1f} s")
         opts = [f"data.train.data_root={data}", f"data.train.ann_file={ann}",
+                f"data.val.data_root={data}", f"data.val.ann_file={val}",
                 "log_config.interval=1"]
+        wd = os.path.join(root, "wd")
         torch.cuda.synchronize()
         for c in (VOLUME_ACCUM, VOLUME_ACCUM_BWD, RAY_MARCH):
             c.launches = 0
         t0 = time.perf_counter()
-        records, ckpt = train_cli.main(
-            [CLI_CONFIG, "--work-dir", os.path.join(root, "wd"),
-             "--load-from", init, "--max-steps", "3", "--cfg-options",
-             *opts])
+        with _eval_grids() as grids:
+            records, ckpt = train_cli.main(
+                [CLI_CONFIG, "--work-dir", wd, "--load-from", init,
+                 "--max-steps", "3", "--cfg-options", *opts])
         wall = time.perf_counter() - t0
         launches = {"volume_accum": VOLUME_ACCUM.launches,
                     "volume_accum_bwd": VOLUME_ACCUM_BWD.launches,
@@ -1424,10 +1656,13 @@ def phase_train_cli(dev) -> dict:
         if len(records) != 3 or not finite:
             raise AssertionError("the train CLI must take 3 steps with "
                                  "finite losses and gradient norms")
-        if launches != {"volume_accum": 3, "volume_accum_bwd": 3,
-                        "ray_march": 3}:
+        if launches != {"volume_accum": 5, "volume_accum_bwd": 3,
+                        "ray_march": 5}:
             raise AssertionError(f"each step must launch K1, K1b and K2 "
-                                 f"once: {launches}")
+                                 f"once, each val scene K1 and K2 once: "
+                                 f"{launches}")
+        best = _check_val("train cli", records, grids,
+                          cfg.model.voxel_dim_test, 2, "mAP", wd)
         cfg.merge_from_options(dict(kv.split("=", 1) for kv in opts))
         model = build_model(cfg, mode="train")
         model.load_state_dict(read_checkpoint(ckpt)["model"])
@@ -1447,7 +1682,7 @@ def phase_train_cli(dev) -> dict:
         del model, batch, losses, tower
         torch.cuda.empty_cache()
         save, middle = os.path.join(root, "res"), os.path.join(root, "mid")
-        recs = test_cli.main([CLI_CONFIG, ckpt, "--max-scenes", "1",
+        recs = test_cli.main([CLI_CONFIG, best, "--max-scenes", "1",
                               "--save-path", save, "--middle-save-path",
                               middle, "--cfg-options",
                               f"data.test.data_root={data}",
@@ -1464,16 +1699,16 @@ def phase_train_cli(dev) -> dict:
         n = _check_scene_files(save, middle, scene, cfg.model.voxel_dim_test,
                                need_points=False, overflow_ok=True)
         log(f"[train cli] the test CLI ran {scene} from "
-            f"{os.path.basename(ckpt)}: forward {recs[0]['forward_s']:.3f} "
+            f"{os.path.basename(best)}: forward {recs[0]['forward_s']:.3f} "
             f"s, {n['raw_boxes']} raw boxes ({n['overflowed']} with face "
             f"distances past fp32), {n['middle_points']} points, files well "
             f"formed")
         with np.load(os.path.join(save, scene, scene + ".npz")) as z:
             written = torch.from_numpy(z["tsdf"])
-        err, moved = _test_forward_tsdf(cfg, data, val, (ckpt, init),
+        err, moved = _test_forward_tsdf(cfg, data, val, (best, init),
                                         written, dev)
         log(f"[train cli] {scene}'s TSDF from the CLI against this "
-            f"process's test forward of {os.path.basename(ckpt)}: max|err| "
+            f"process's test forward of {os.path.basename(best)}: max|err| "
             f"{err:.3g} (tol 1e-5); of the initial weights: max|diff| "
             f"{moved:.3g} (must exceed 1e-3)")
         if not err <= 1e-5 or not moved > 1e-3:
@@ -1546,8 +1781,9 @@ def _stage1_volume_bwd(dev, cfg, data: str, ann: str) -> list:
     first sample (a random z-rotation and crop of the room, 50 views, the
     160x160x64 grid), against its plain version at phase 6c's tolerance,
     in stage 1's bf16 and in fp32; its time beside the plain version's
-    and, in fp32, ``index_add_``'s; the pairs that skipped its window.
-    Returns its device-time calls for phase 8, as ``_arkit_kernels``."""
+    and ``index_add_``'s; the pairs that skipped its window.
+    Returns its device-time calls for phase 8, as ``_arkit_kernels``,
+    with ``index_add_`` as the library call in both dtypes."""
     from cnrma_torch.core.builder import build_dataset
     from cnrma_torch.ops import backproject as bp
     cfg.merge_from_options({"data.train.data_root": data,
@@ -1570,11 +1806,9 @@ def _stage1_volume_bwd(dev, cfg, data: str, ann: str) -> list:
         ms = time_ms(lambda: bp.volume_accum_bwd_cuda(*args), dev)
         plain_ms = time_ms(lambda: bp.volume_accum_bwd_plain(*args), dev,
                            reps=3)
-        note = ""
-        if dtype == torch.float32:
-            library = index_add_library(args)
-            note = f", index_add_ {time_ms(library, dev):.4f} ms"
-            del library
+        library = index_add_library(args)
+        note = f", index_add_ {time_ms(library, dev):.4f} ms"
+        del library
         nbytes, ops, pairs = volume_bwd_work(args)
         direct = torch.zeros(1, dtype=torch.int64, device=dev)
         bp.volume_accum_bwd_cuda(*args, direct=direct)
@@ -1592,7 +1826,7 @@ def _stage1_volume_bwd(dev, cfg, data: str, ann: str) -> list:
              "volume_accum_bwd_kernel",
              lambda dtype=dtype: volume_bwd_args_at(
                  dev, dtype, proj, valid, dim, cfg.model.voxel_size, h, w),
-             lambda a: bp.volume_accum_bwd_cuda(*a))
+             lambda a: bp.volume_accum_bwd_cuda(*a), index_add_library)
             for dtype in (torch.bfloat16, torch.float32)]
 
 
@@ -1693,22 +1927,31 @@ def phase_three_stages(dev) -> list:
         log(f"[stages] wrote 2 scenes (60 frames of 1296x968 JPEG, room "
             f"TSDF and boxes) in {time.perf_counter() - t0:.1f} s")
 
-        # 1. stage 1, from the CLI's default initialisation (seed 0)
-        records, s1, launches, out = _run_train_cli(
-            [STAGE1_CONFIG, "--work-dir", os.path.join(root, "s1"),
-             "--max-steps", "3", "--cfg-options",
-             f"data.train.data_root={data}", f"data.train.ann_file={ann}",
-             "log_config.interval=1"], counters, 3, "stage 1")
+        # 1. stage 1, from the CLI's default initialisation (seed 0), with
+        # a val split read as the config's test split (the stage-1 configs
+        # have none): two scenes at the test grid, views cut to 50
+        val_split = dict(cfg1.data.test, data_root=data, ann_file=val,
+                         num_frames=STAGE1_TEST_VIEWS)
+        with _eval_grids() as grids:
+            records, s1, launches, out = _run_train_cli(
+                [STAGE1_CONFIG, "--work-dir", os.path.join(root, "s1"),
+                 "--max-steps", "3", "--cfg-options",
+                 f"data.train.data_root={data}",
+                 f"data.train.ann_file={ann}", f"data.val={val_split!r}",
+                 "log_config.interval=1"], counters, 3, "stage 1")
         pre = [ln for ln in out.splitlines() if "backbone2d.pretrained" in ln
                or "pretrained 2D-backbone" in ln]
         log(f"[stage 1] R-50: {pre}")
         if not (len(pre) == 1 and "(0 tensors loaded)" in pre[0]):
             raise AssertionError("stage 1 must say it loaded 0 R-50 "
                                  "tensors, the file being missing")
-        if launches != {"volume_accum": 3, "volume_accum_bwd": 3,
+        if launches != {"volume_accum": 5, "volume_accum_bwd": 3,
                         "ray_march": 0}:
             raise AssertionError(f"each stage-1 step must launch K1 and K1b "
-                                 f"once, K2 never: {launches}")
+                                 f"once, each val scene K1 once, K2 never: "
+                                 f"{launches}")
+        _check_val("stage 1", records, grids, cfg1.model.voxel_dim_test, 2,
+                   "loss", os.path.join(root, "s1"))
 
         # 2. K1b at stage 1's shape
         calls = _stage1_volume_bwd(dev, Config.fromfile(STAGE1_CONFIG), data,
@@ -1818,7 +2061,8 @@ def phase_three_stages(dev) -> list:
             [CLI_CONFIG, "--work-dir", os.path.join(root, "s3"),
              "--load-from", merged, "--max-steps", "1", "--cfg-options",
              f"data.train.data_root={data}", f"data.train.ann_file={ann}",
-             "log_config.interval=1"], counters, 1, "stage 3")
+             "evaluation=None", "log_config.interval=1"], counters, 1,
+            "stage 3")
         if launches != {"volume_accum": 1, "volume_accum_bwd": 1,
                         "ray_march": 1}:
             raise AssertionError(f"the stage-3 step must launch K1, K1b and "
@@ -2106,7 +2350,8 @@ def _arkit_kernels(dev, test_sample, train_sample) -> list:
     readers' projections of a synthetic scene), fp32 as the config runs,
     each against its plain version (phases 3, 4 and 6c's tolerances) and
     timed by CUDA events beside it.  Returns the device-time calls for
-    phase 8: (label, kernel symbol, the call's arguments' maker, call)."""
+    phase 8: (label, kernel symbol, the call's arguments' maker, call, the
+    maker of the library call on those arguments or None)."""
     from cnrma_torch.ops import backproject as bp
     from cnrma_torch.ops import ray_marching as rm
 
@@ -2168,13 +2413,13 @@ def _arkit_kernels(dev, test_sample, train_sample) -> list:
     torch.cuda.empty_cache()
     return [("K1 at the ARKit test shape", "volume_accum_kernel",
              lambda: arkit_volume_args(dev, *test_views),
-             lambda a: bp.volume_accum_cuda(*a)),
+             lambda a: bp.volume_accum_cuda(*a), None),
             ("K2 at the ARKit test shape", "ray_march_kernel",
              lambda: arkit_ray_args(dev, *test_views),
-             lambda a: rm.march_rays_cuda(*a)),
+             lambda a: rm.march_rays_cuda(*a), None),
             ("K1b at the ARKit training shape", "volume_accum_bwd_kernel",
              lambda: arkit_volume_bwd_args(dev, *train_views),
-             lambda a: bp.volume_accum_bwd_cuda(*a))]
+             lambda a: bp.volume_accum_bwd_cuda(*a), index_add_library)]
 
 
 def phase_arkit(dev) -> list:
@@ -2211,21 +2456,27 @@ def phase_arkit(dev) -> list:
             f"{time.perf_counter() - t0:.1f} s")
         _arkit_test_cli(dev, root, data, val)
 
-        records, _, launches, _ = _run_train_cli(
-            [ARKIT_CONFIG, "--work-dir", os.path.join(root, "s3"),
-             "--max-steps", "3", "--cfg-options",
-             f"data.train.data_root={data}", f"data.train.ann_file={train}",
-             "log_config.interval=1"], counters, 3, "arkit stage 3")
-        log(f"[arkit stage 3] launches a step: "
-            + ", ".join(f"{k} {v / 3:g}" for k, v in launches.items())
-            + "; a finite grad_norm each step: every leaf's gradient "
+        with _eval_grids() as grids:
+            records, _, launches, _ = _run_train_cli(
+                [ARKIT_CONFIG, "--work-dir", os.path.join(root, "s3"),
+                 "--max-steps", "3", "--cfg-options",
+                 f"data.train.data_root={data}",
+                 f"data.train.ann_file={train}", f"data.val.data_root={data}",
+                 f"data.val.ann_file={val}", "log_config.interval=1"],
+                counters, 3, "arkit stage 3")
+        log(f"[arkit stage 3] launches: {launches} (3 steps and 2 val "
+            f"scenes); a finite grad_norm each step: every leaf's gradient "
             f"finite; steps with positives (loss_bbox > 0): "
             f"{sum(r['log_vars']['loss_bbox'] > 0 for r in records)} of 3 "
             f"(the default initialisation may keep no point)")
-        if launches != {"volume_accum": 3, "volume_accum_bwd": 3,
-                        "ray_march": 3}:
+        if launches != {"volume_accum": 5, "volume_accum_bwd": 3,
+                        "ray_march": 5}:
             raise AssertionError(f"each ARKit stage-3 step must launch K1, "
-                                 f"K1b and K2 once: {launches}")
+                                 f"K1b and K2 once, each val scene K1 and "
+                                 f"K2 once: {launches}")
+        _check_val("arkit stage 3", records, grids,
+                   Config.fromfile(ARKIT_CONFIG).model.voxel_dim_test, 2,
+                   "mAP", os.path.join(root, "s3"))
 
         syn = os.path.join(data, "middle_points")
         write_point_dumps(data, syn, n_points=600000,
@@ -2256,6 +2507,49 @@ def phase_arkit(dev) -> list:
         return calls
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+LEARN_STEPS = 60            # the times each room is trained on
+
+
+def phase_learn(dev) -> None:
+    """The whole-model learning check: ``python -m
+    cnrma_torch.tools.overfit_full --steps LEARN_STEPS``, ScanNet-style and
+    ``--yaw``, on the card, the launch counts set to 0 before each run and
+    read after (K1, K1b and K2 once a training step; K1 and K2 once a
+    scored scene); fails unless the tool's PASS rule holds."""
+    from cnrma_torch.ops.backproject import VOLUME_ACCUM, VOLUME_ACCUM_BWD
+    from cnrma_torch.ops.ray_marching import RAY_MARCH
+    from cnrma_torch.tools import overfit_full
+    counters = {"volume_accum": VOLUME_ACCUM,
+                "volume_accum_bwd": VOLUME_ACCUM_BWD, "ray_march": RAY_MARCH}
+    t_phase = time.perf_counter()
+    for flags in ([], ["--yaw"]):
+        tag = "learn" + "".join(f" {f}" for f in flags)
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = overfit_full.run(["--steps", str(LEARN_STEPS), *flags])
+        launches = _counts(counters)
+        steps = out["steps"]
+        log(f"[{tag}] {steps} steps (two rooms, one a step) in "
+            f"{time.perf_counter() - t0:.1f} s: total loss {out['first']:.4f}"
+            f" -> {out['final']:.4f}, recon {out['first_recon']:.4f} -> "
+            f"{out['final_recon']:.4f}; mAP@0.25 {out['mAP_0.25']:.4f}, "
+            f"mAP@0.50 {out['mAP_0.50']:.4f}; {out['step_s']:.4f} s a step, "
+            f"peak memory {out['peak_gib']:.2f} GiB; launches {launches}; "
+            f"PASS {out['ok']}")
+        if launches != {"volume_accum": steps + 2, "volume_accum_bwd": steps,
+                        "ray_march": steps + 2}:
+            raise AssertionError(f"[{tag}] each step must launch K1, K1b and "
+                                 f"K2 once, each scored room K1 and K2: "
+                                 f"{launches}")
+        if not out["ok"]:
+            raise AssertionError(f"[{tag}] the learning check failed its "
+                                 f"rule (total < 0.6 x first, recon < 0.5 x "
+                                 f"first, mAP@0.25 >= 0.5)")
+    log(f"[learn] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 def dot_integer_check(dev) -> None:
@@ -2337,7 +2631,8 @@ def phase_device_time(dev, rows, probe_calls, shape_calls) -> None:
     its bf16 row).  The launch floor (``floor_ms``, the device time of the
     empty kernel) goes on every row.  Then ``shape_calls``, the main-path
     kernels at the other shapes the phases drive (K1b at stage 1's crop;
-    K1, K2 and K1b at ARKit's), logged beside the floor.  Last of all: once
+    K1, K2 and K1b at ARKit's), logged beside the floor and, for K1b,
+    beside ``index_add_``'s device time on the same inputs.  Last of all: once
     a profiler session
     has run, CUPTI's launch callbacks stay on and slow every later launch
     on the host, so host-timed phases come first."""
@@ -2372,16 +2667,19 @@ def phase_device_time(dev, rows, probe_calls, shape_calls) -> None:
             f"{fmt_ms(row['library_device_ms'])}, bound "
             f"{row['bound_ms']:.6f} ms, floor {fmt_ms(floor)}")
     del vol, rays, bwd, calls
-    for label, symbol, make, call in shape_calls:
+    for label, symbol, make, call, library in shape_calls:
         args = make()
         ms = device_ms(lambda: call(args), symbol)
         ratio = f", {ms / floor:.2f}x the floor" if ms and floor else ""
-        log(f"[device time] {label}: kernel {fmt_ms(ms)}{ratio}")
+        lib = ("" if library is None else
+               f", library (index_add_) {fmt_ms(device_ms(library(args)))}")
+        log(f"[device time] {label}: kernel {fmt_ms(ms)}{ratio}{lib}")
         del args
         torch.cuda.empty_cache()
 
 
 def main() -> None:
+    t_script = time.perf_counter()
     name = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -2389,6 +2687,7 @@ def main() -> None:
     ray = phase_ray_march(dev)
     launches, model, batch = phase_end_to_end(dev)
     phase_surface(dev, model, batch)
+    phase_depth(dev, model, batch)
     del model, batch
     phase_reference(dev)
     phase_test_cli(dev)
@@ -2397,6 +2696,7 @@ def main() -> None:
     train_launches = phase_train_cli(dev)
     stage1_calls = phase_three_stages(dev)
     arkit_calls = phase_arkit(dev)
+    phase_learn(dev)
     probes, probe_calls = phase_probes(dev)
     kernels = [
         dict(name="volume_accum", route="cuda",
@@ -2414,6 +2714,8 @@ def main() -> None:
         *probes,
     ]
     phase_device_time(dev, kernels, probe_calls, stage1_calls + arkit_calls)
+    log(f"[script] every phase passed in "
+        f"{time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -9,9 +9,10 @@ reconstruction knobs only), ``fcaf3d_only_kwargs`` those of ``FCAF3DOnly``,
 each with the JAX builder's defaults; ``build_model`` builds the config's
 model, on the training grid for ``mode="train"`` and the test grid for
 ``mode="test"``; ``loss_bbox.with_yaw`` (``model.with_yaw`` for
-``FCAF3DOnly``) gives the ARKit configs their 7-DoF detector.  Depth
-marching raises ``NotImplementedError`` naming the ROADMAP item that
-brings it.
+``FCAF3DOnly``) gives the ARKit configs their 7-DoF detector;
+``ray_marching_type='depth'`` selects the depth march, with
+``depth_points`` 2 where the config sets none (or 0), as the JAX builder
+reads it.
 """
 
 from __future__ import annotations
@@ -76,9 +77,6 @@ def cnrma_kwargs(cfg, mode: str = "test") -> Dict[str, Any]:
 
     head = m.get("detection_head", {})
     test_cfg = head.get("test_cfg", {}) or {}
-    if m.get("ray_marching_type", "neus") != "neus":
-        raise NotImplementedError(
-            "ray_marching_type 'depth' is not ported yet (ROADMAP queue 1)")
     # Ignored: the TPU knobs of the JAX volume and sparse paths (bp_tile,
     # bp_tile_frac, bp_rect_h, bp_rect_w, bp_rect_frac, bp_overflow_frac,
     # sparse_lut_budget) have no counterpart in the port's K1 and kernel
@@ -86,7 +84,9 @@ def cnrma_kwargs(cfg, mode: str = "test") -> Dict[str, Any]:
     assigner = head.get("assigner", {}) or {}
     return dict(
         common,
+        ray_marching_type=m.get("ray_marching_type", "neus"),
         neus_threshold=m.get("neus_threshold") or 0.05,
+        depth_points=m.get("depth_points") or 2,
         ray_samples=m.get("ray_samples", 300),
         rays_per_view_cap=m.get("rays_per_view_cap", 32768),
         max_points=m.get("max_points", 500000),

@@ -1,11 +1,11 @@
-"""Batches of scenes: collation and a shuffled loader that reads one batch
-ahead.
+"""Batches of scenes: collation and a loader that reads one batch ahead.
 
 Port of ``cnrma_tpu/data/loader.py``'s ``collate_scenes`` (a copy) and of
 ``SceneLoader``'s order at one scene a batch (a training batch holds one
 scene here): the scenes of each epoch are shuffled by a
 ``np.random.RandomState`` seeded once, so consecutive epochs take
-consecutive shuffles.  One reader thread reads the next batch while the
+consecutive shuffles; with ``shuffle=False`` (the val split) every scene
+comes in the dataset's order.  One reader thread reads the next batch while the
 caller trains on this one, and no more: at most two batches are alive.
 """
 
@@ -39,12 +39,14 @@ def collate_scenes(samples: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
 
 class SceneLoader:
     """One scene a batch, in an order shuffled per epoch (``SceneLoader``
-    with ``batch_size=1, shuffle=True``).  Each batch also carries
-    ``load_s`` (the seconds its reading took) and ``wait_s`` (the seconds
-    the caller waited for it)."""
+    with ``batch_size=1``), or in the dataset's order with
+    ``shuffle=False``.  Each batch also carries ``load_s`` (the seconds its
+    reading took) and ``wait_s`` (the seconds the caller waited for it)."""
 
-    def __init__(self, dataset, seed: Optional[int] = None):
+    def __init__(self, dataset, seed: Optional[int] = None,
+                 shuffle: bool = True):
         self.dataset = dataset
+        self.shuffle = shuffle
         self.rng = np.random.RandomState(seed)
 
     def __len__(self) -> int:
@@ -53,7 +55,8 @@ class SceneLoader:
     def order(self) -> List[int]:
         """The next epoch's scene indices."""
         idx = np.arange(len(self.dataset))
-        self.rng.shuffle(idx)
+        if self.shuffle:
+            self.rng.shuffle(idx)
         return idx.tolist()
 
     def _read(self, index: int) -> Dict[str, Any]:

@@ -1,7 +1,8 @@
-"""CN-RMA combined detector: 2D tower -> volume -> TSDF -> NeuS ray
-marching -> sparse FCAF3D detection; per-level top-k boxes in the test
-forward, the joint losses in the training forward.  ``Atlas`` is its
-reconstruction half alone, the stage-1 model.
+"""CN-RMA combined detector: 2D tower -> volume -> TSDF -> NeuS (or depth)
+ray marching -> sparse FCAF3D detection; per-level top-k boxes in the test
+forward, the joint losses in the training forward, and in the test forward
+too where the batch holds the ground truth (the validation split).
+``Atlas`` is its reconstruction half alone, the stage-1 model.
 
 Port of ``cnrma_tpu/models/cn_rma.py`` (``CNRMA.__call__``, ``Atlas``,
 ``feature_transform_aug``, ``_rotate_boxes``, ``_normalize_subsample``,
@@ -37,7 +38,7 @@ from cnrma_torch.models.tsdf_head import TSDFHead, tsdf_losses
 from cnrma_torch.models.unet3d import UNet3D
 from cnrma_torch.ops.backproject import accumulate_views
 from cnrma_torch.ops.ray_marching import (
-    RayMarchPoints, build_occupancy, ray_march_scene)
+    RayMarchPoints, build_occupancy, ray_march_depth_scene, ray_march_scene)
 from cnrma_torch.timing import mark
 
 
@@ -205,7 +206,9 @@ class CNRMA(nn.Module):
                  pixel_mean: Sequence[float] = (103.53, 116.28, 123.675),
                  pixel_std: Sequence[float] = (1.0, 1.0, 1.0),
                  backbone2d_stride: int = 4, feature_dim: int = 32,
-                 neus_threshold: float = 0.05, ray_samples: int = 300,
+                 ray_marching_type: str = "neus",
+                 neus_threshold: float = 0.05, depth_points: int = 2,
+                 ray_samples: int = 300,
                  rays_per_view_cap: int = 98304, max_points: int = 500000,
                  ray_skip_factor: int = 8, ray_skip_window: int = 48,
                  ray_skip_coarse_step: int = 8,
@@ -221,6 +224,11 @@ class CNRMA(nn.Module):
                  feature_transform: Optional[Dict[str, Any]] = None,
                  compute_dtype: Any = torch.float32):
         super().__init__()
+        if ray_marching_type not in ("neus", "depth"):
+            raise ValueError(f"ray_marching_type must be 'neus' or 'depth', "
+                             f"got {ray_marching_type!r}")
+        self.ray_marching_type = ray_marching_type
+        self.depth_points = depth_points
         self.loss_weight_recon = loss_weight_recon
         self.loss_weight_detection = loss_weight_detection
         self.use_feature_transform = use_feature_transform
@@ -297,31 +305,41 @@ class CNRMA(nn.Module):
                   view_valid: torch.Tensor, tsdf: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
                   uniform: Optional[torch.Tensor] = None) -> RayPoints:
-        """All-view NeuS marching -> weighted feature point cloud: one
-        scene-level march per scene (all views at once), global mean weight
-        normalization, subsample to ``max_points``, pixel-feature gather,
-        weight multiply.  ``uniform`` ([B, V * rays_per_view_cap]) replaces
-        the generator's draw.  An invalid view emits no point (the JAX
-        package zeroes its weights: the same kept set)."""
+        """All-view marching -> weighted feature point cloud: one
+        scene-level march per scene (NeuS: all views at once through K2;
+        depth: view by view in torch), global mean weight normalization,
+        subsample to ``max_points``, pixel-feature gather, weight multiply.
+        ``uniform`` ([B, V * rays_per_view_cap]) replaces the generator's
+        draw.  An invalid view emits no point (the JAX package zeroes its
+        weights: the same kept set)."""
         b, v, h, w, _ = feats.shape
         proj = self._scaled_projections(projections)
-        use_skip = (self.ray_skip_factor > 0
+        neus = self.ray_marching_type == "neus"
+        use_skip = (neus and self.ray_skip_factor > 0
                     and self.ray_samples > self.ray_skip_window
                     and all(n % self.ray_skip_factor == 0
                             for n in self.voxel_dim))
         scenes = []
         for i in range(b):
-            occ = (build_occupancy(tsdf[i], self.ray_skip_factor)
-                   if use_skip else None)
-            pts = ray_march_scene(
-                proj[i], tsdf[i], view_valid[i], self.voxel_dim,
-                self.voxel_size, self.origin, h, w,
-                n_samples=self.ray_samples,
-                weight_threshold=self.neus_threshold,
-                capacity=self.rays_per_view_cap, occupancy=occ,
-                skip_factor=self.ray_skip_factor,
-                skip_window=self.ray_skip_window,
-                coarse_step=self.ray_skip_coarse_step)
+            if neus:
+                occ = (build_occupancy(tsdf[i], self.ray_skip_factor)
+                       if use_skip else None)
+                pts = ray_march_scene(
+                    proj[i], tsdf[i], view_valid[i], self.voxel_dim,
+                    self.voxel_size, self.origin, h, w,
+                    n_samples=self.ray_samples,
+                    weight_threshold=self.neus_threshold,
+                    capacity=self.rays_per_view_cap, occupancy=occ,
+                    skip_factor=self.ray_skip_factor,
+                    skip_window=self.ray_skip_window,
+                    coarse_step=self.ray_skip_coarse_step)
+            else:
+                pts = ray_march_depth_scene(
+                    proj[i], tsdf[i], view_valid[i], self.voxel_dim,
+                    self.voxel_size, self.origin, h, w,
+                    n_samples=self.ray_samples,
+                    depth_points=self.depth_points,
+                    capacity=self.rays_per_view_cap)
             flat = RayMarchPoints(*(f.flatten(0, 1) for f in pts))
             scenes.append(_normalize_subsample(
                 flat, self.max_points, generator,
@@ -360,13 +378,30 @@ class CNRMA(nn.Module):
         return losses
 
     # ------------------------------------------------------------------
+    def test_losses(self, tsdf: Dict[str, torch.Tensor], level_outs,
+                    batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The losses of a test forward whose batch holds ground truth
+        (``CNRMA.__call__`` with ``train=False``): the reconstruction's where
+        it has ``tsdf_list``, the detector's (times
+        ``loss_weight_detection``, no feature augmentation) where it has
+        ``gt_boxes``; empty without either."""
+        losses = (self.recon_losses(tsdf, batch) if batch.get("tsdf_list")
+                  else {})
+        if level_outs is not None and "gt_boxes" in batch:
+            det = self.detector.loss(level_outs, batch["gt_boxes"],
+                                     batch["gt_labels"], batch["gt_valid"])
+            losses.update({k: v * self.loss_weight_detection
+                           for k, v in det.items()})
+        return losses
+
     @torch.no_grad()
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None,
                 uniform: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         """Test-mode forward.  Returns ``tsdf`` (the per-scale TSDFs),
         ``points`` (the detector's input cloud, offset applied) and the raw
-        per-level top-k ``bboxes``/``scores``/``bbox_valid``."""
+        per-level top-k ``bboxes``/``scores``/``bbox_valid``; with ground
+        truth in the batch also ``losses`` (``test_losses``)."""
         feats, view_valid, tsdf = self.reconstruct_views(batch)
         fine = tsdf[f"scene_tsdf_{self.tsdf_head.keys[-1]}"]
         pts = self.ray_march(feats, batch["projection"], view_valid, fine,
@@ -374,10 +409,13 @@ class CNRMA(nn.Module):
         xyz = pts.xyz + batch["offset"][:, None, :]
         level_outs = self.detector(xyz, pts.feats, pts.valid)
         bboxes, scores, bvalid = self.detector.get_bboxes(level_outs)
-        return {"tsdf": tsdf,
-                "points": RayPoints(xyz=xyz, feats=pts.feats,
-                                    valid=pts.valid),
-                "bboxes": bboxes, "scores": scores, "bbox_valid": bvalid}
+        out = {"tsdf": tsdf,
+               "points": RayPoints(xyz=xyz, feats=pts.feats, valid=pts.valid),
+               "bboxes": bboxes, "scores": scores, "bbox_valid": bvalid}
+        losses = self.test_losses(tsdf, level_outs, batch)
+        if losses:
+            out["losses"] = losses
+        return out
 
     def forward_train(self, batch: Dict[str, Any],
                       generator: Optional[torch.Generator] = None,
@@ -430,8 +468,11 @@ class Atlas(CNRMA):
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None,
                 uniform: Optional[torch.Tensor] = None) -> Dict[str, Any]:
-        """Test-mode forward: ``tsdf``, the per-scale TSDFs."""
-        return {"tsdf": self.reconstruct_views(batch)[2]}
+        """Test-mode forward: ``tsdf``, the per-scale TSDFs, and with
+        ``tsdf_list`` in the batch their ``losses``."""
+        tsdf = self.reconstruct_views(batch)[2]
+        losses = self.test_losses(tsdf, None, batch)
+        return {"tsdf": tsdf, "losses": losses} if losses else {"tsdf": tsdf}
 
     def forward_train(self, batch: Dict[str, Any],
                       generator: Optional[torch.Generator] = None,

@@ -53,11 +53,17 @@ class FCAF3DOnly(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> Dict[str, Any]:
         """Test-mode forward: the raw per-level top-k ``bboxes``,
-        ``scores`` and ``bbox_valid``."""
+        ``scores`` and ``bbox_valid``; with ``gt_boxes`` in the batch also
+        the detector's ``losses`` (no augmentation)."""
         level_outs = self.detector(batch["points"], batch["point_feats"],
                                    batch["point_valid"])
         bboxes, scores, bvalid = self.detector.get_bboxes(level_outs)
-        return {"bboxes": bboxes, "scores": scores, "bbox_valid": bvalid}
+        out = {"bboxes": bboxes, "scores": scores, "bbox_valid": bvalid}
+        if "gt_boxes" in batch:
+            out["losses"] = self.detector.loss(
+                level_outs, batch["gt_boxes"], batch["gt_labels"],
+                batch["gt_valid"])
+        return out
 
     def forward_train(self, batch: Dict[str, Any],
                       generator: Optional[torch.Generator] = None,

@@ -16,6 +16,12 @@ hand-written kernel ``csrc/ray_march.cu`` on a CUDA tensor, one launch per
 scene, and ``march_rays_plain`` on a CPU tensor.  ``ray_march_neus`` marches
 one view with the plain pieces, as the JAX package's function does.
 
+The depth variant (``ray_march_depth``, ``ray_marching_type='depth'``) keeps
+the samples around each ray's first TSDF sign change instead; it has no
+kernel of its own in the JAX package either, so plain torch ops are the
+port, and ``ray_march_depth_scene`` marches a scene view by view, so that
+one view's [rays, samples] positions are alive at a time.
+
 Slot order follows the JAX package exactly: per ray, samples in descending
 weight with ties to the lower sample index (``lax.top_k``); then, under
 capacity, pixel-major compaction, and over capacity the global weight
@@ -78,9 +84,12 @@ def get_ray_parameters(projection: torch.Tensor, height: int, width: int
 
 def _voxel_ids(places: torch.Tensor, origin, cell: float,
                dims: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Nearest-voxel flat index (0 where outside) and in-grid mask."""
+    """Nearest-voxel flat index (0 where outside) and in-grid mask.  The
+    origin is filled on the device, not copied there (a copy from the
+    host would synchronise)."""
     dev = places.device
-    org = torch.as_tensor(origin, dtype=torch.float32, device=dev)
+    org = torch.stack([torch.full((), float(x), dtype=torch.float32,
+                                  device=dev) for x in origin])
     cell_t = torch.full((), cell, dtype=torch.float32, device=dev)
     ids = torch.round((places - org) / cell_t).to(torch.int32)
     valid = torch.ones(ids.shape[:-1], dtype=torch.bool, device=dev)
@@ -465,3 +474,104 @@ def ray_march_neus(projection: torch.Tensor, tsdf: torch.Tensor,
     views = torch.full((1,), view_index, device=d.device)
     return RayMarchPoints(*(f[0] for f in _points(
         weight, sample, o, d, views, t_one, width, capacity)))
+
+
+def _depth_view(o: torch.Tensor, d: torch.Tensor, tsdf: torch.Tensor,
+                voxel_dim: Sequence[int], voxel_size: float,
+                origin: Sequence[float], width: int, view_index: int,
+                n_samples: int, depth_points: int, capacity: int,
+                valid=True) -> RayMarchPoints:
+    """``ray_march_depth`` of one view's rays (origin o [3], directions
+    d [HW, 3]); a view that is not ``valid`` (a 0-dim bool tensor or a
+    bool) keeps no point."""
+    t_one = _t_one(voxel_dim, voxel_size, n_samples)
+    hw, dev = d.shape[0], d.device
+    ts = torch.arange(n_samples, dtype=torch.float32, device=dev) * t_one
+    places = o[None, None, :] + d[:, None, :] * ts[None, :, None]
+    tv, _ = _sample_tsdf(tsdf, places, origin, voxel_size)     # [HW, n]
+    del places
+    prod = torch.cat([tv[:, :-1] * tv[:, 1:],
+                      torch.ones(hw, 1, dtype=torch.float32, device=dev)],
+                     dim=1)
+    change = prod <= 0
+    best_index = change.to(torch.uint8).argmax(dim=1)         # first change
+    best_weight = (change.any(dim=1) & valid).float()
+    if depth_points > 0:
+        num = 2 * depth_points
+        add = torch.arange(num, device=dev) - depth_points + 1
+        ramp = torch.arange(1, depth_points + 1, dtype=torch.float32,
+                            device=dev)
+        multi_w = torch.cat([ramp, ramp.flip(0)]) / depth_points
+        sel_idx = best_index[:, None] + add[None, :]           # [HW, num]
+        sel_w = best_weight[:, None] * multi_w[None, :]
+        sel_w = sel_w * ((sel_idx >= 0) & (sel_idx < n_samples))
+        sel_t = sel_idx.float() * t_one
+    else:
+        num = 1
+        sel_t = (best_index.float() + 0.5)[:, None] * t_one
+        sel_w = best_weight[:, None]
+    w_flat = sel_w.reshape(-1)
+    if capacity < w_flat.shape[0]:
+        report_capacity("ray-march kept samples/view",
+                        lambda: (w_flat > 0).sum(), capacity)
+    # weight-ranked selection of indices into the [HW, num] grid; the
+    # payload (position, weight, pixel) is rebuilt for the survivors
+    sel = _select_topk(w_flat, capacity)
+    ok = sel >= 0
+    sel_c = torch.where(ok, sel, 0)
+    pix = sel_c // num
+    xyz = o[None, :] + d[pix] * sel_t.reshape(-1)[sel_c][:, None]
+    w_c = torch.where(ok, w_flat[sel_c], 0.0)
+    uv = torch.stack([pix % width, pix // width], dim=1).to(torch.int32)
+    uv = torch.where(ok[:, None], uv, 0)
+    xyz = torch.where(ok[:, None], xyz, 0.0)
+    view = torch.where(ok & (w_c > 0), view_index, -1).to(torch.int32)
+    return RayMarchPoints(xyz=xyz, weight=w_c, uv=uv, view=view)
+
+
+def ray_march_depth(projection: torch.Tensor, tsdf: torch.Tensor,
+                    voxel_dim: Sequence[int], voxel_size: float,
+                    origin: Sequence[float], height: int, width: int,
+                    view_index: int, n_samples: int = 300,
+                    depth_points: int = 2, capacity: int = 32768
+                    ) -> RayMarchPoints:
+    """Depth marching of one view (port of the JAX ``ray_march_depth``,
+    reference ``ray_projection_depth``): along each pixel's ray,
+    ``n_samples`` nearest-voxel TSDF samples over the grid's diagonal; at
+    the first sign change (a product of neighbours <= 0) it keeps
+    ``2 * depth_points`` samples, from ``depth_points - 1`` before it, with
+    weights ``[1 .. d, d .. 1] / d`` (0 off the ray), or with
+    ``depth_points`` 0 one point half a sample past it, weight 1.  A ray
+    without a sign change keeps nothing.  Then the weight-ranked selection
+    of up to ``capacity`` points (``_select_topk``).
+
+    Args:
+        projection: [3, 4] stride-adjusted projection of this view.
+        tsdf: [X, Y, Z] predicted fine TSDF (fp32).
+
+    Returns:
+        RayMarchPoints of ``capacity`` slots; weight 0 marks empty ones.
+    """
+    _check_dims(tsdf, voxel_dim)
+    o, d = get_ray_parameters(projection[None], height, width)
+    return _depth_view(o[0], d[0], tsdf, voxel_dim, voxel_size, origin,
+                       width, view_index, n_samples, depth_points, capacity)
+
+
+def ray_march_depth_scene(projections: torch.Tensor, tsdf: torch.Tensor,
+                          view_valid: torch.Tensor,
+                          voxel_dim: Sequence[int], voxel_size: float,
+                          origin: Sequence[float], height: int, width: int,
+                          n_samples: int = 300, depth_points: int = 2,
+                          capacity: int = 32768) -> RayMarchPoints:
+    """``ray_march_depth`` of every view of one scene, one view at a time
+    (a full ScanNet view is 19,200 rays x 300 samples); an invalid view
+    (``view_valid`` [V] False) keeps no point.  Returns RayMarchPoints of
+    [V, capacity] slots."""
+    _check_dims(tsdf, voxel_dim)
+    o, d = get_ray_parameters(projections, height, width)
+    views = [_depth_view(o[i], d[i], tsdf, voxel_dim, voxel_size, origin,
+                         width, i, n_samples, depth_points, capacity,
+                         view_valid[i])
+             for i in range(projections.shape[0])]
+    return RayMarchPoints(*(torch.stack(f) for f in zip(*views)))

@@ -36,26 +36,44 @@ parameters are the model's default initialisation under
 ``torch.manual_seed(--seed)``, as the JAX tool starts from ``model.init``
 (zero-initialised residual norms, the detector's class prior).
 
+With ``evaluation`` and ``data.val`` in the config (every config has
+``evaluation = dict(interval=10)``; the stage-3 ones ``metric='mAP'``), the
+val split is read in scene order, every scene, and scored after every
+``evaluation.interval``-th epoch, the last, and a stop by ``--max-steps``:
+the mean val losses and, for ``metric='mAP'``, the NMS and mAP
+(``train/loop.py:evaluate_split``); ``{work dir}/best.pt`` keeps the state
+with the lowest ``val/total_loss`` or the highest ``val/mAP_0.25``, and
+loads in the test CLI and in ``--resume-from``.  The interval counts
+epochs, as the JAX package's does (the reference counts 3000 iterations;
+ROADMAP F5).  Where the val split cannot be built the CLI warns and trains
+without evaluation, as the JAX tool does.
+
+The val split is scored at the config's test grid (``voxel_dim_test``, the
+grid its samples and TSDF targets come at) by ``test_twin``: a test-mode
+model whose parameters and buffers are the training model's own tensors,
+so nothing is copied.  The JAX tool scores it with its training-grid
+model, which cannot take the ScanNet configs' val samples (ROADMAP F14).
+
 The step runs on ``cuda:0`` unless ``--device cpu``; a batch holds one
 scene.  The checkpoints load in ``python -m cnrma_torch.tools.test``.
-Multi-card data parallel training and the mid-training evaluation are not
-ported yet (ROADMAP).
+Multi-card data parallel training is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch import nn
 
 from cnrma_torch.convert import load_pretrained_2d
 from cnrma_torch.core.builder import build_dataset, build_model
 from cnrma_torch.core.config import Config
 from cnrma_torch.data.loader import SceneLoader
 from cnrma_torch.tools.test import load_parameters
-from cnrma_torch.train.loop import run_training
+from cnrma_torch.train.loop import evaluate_split, run_training
 from cnrma_torch.train.optim import (
     FROZEN_PREFIXES_FREEZE_AT_2, build_lr_schedule, build_optimizer)
 from cnrma_torch.train.state import TrainState, load_checkpoint
@@ -77,6 +95,49 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--device", default="cuda:0",
                    help="cuda:0 (default) or cpu")
     return p.parse_args(argv)
+
+
+def test_twin(cfg, model: nn.Module) -> nn.Module:
+    """The config's test-mode model (eval mode, the ``voxel_dim_test``
+    grid) whose parameters and buffers are ``model``'s tensors, shared,
+    not copied: the training steps move both.  Make it after ``model``
+    is on its device (``Module.to`` replaces buffers)."""
+    twin = build_model(cfg, mode="test")
+    ours, theirs = dict(twin.named_modules()), dict(model.named_modules())
+    if ours.keys() != theirs.keys():
+        raise ValueError("the test model's modules are not the training "
+                         "model's")
+    for name, mod in ours.items():
+        for table in ("_parameters", "_buffers"):
+            mine, shared = getattr(mod, table), getattr(theirs[name], table)
+            if mine.keys() != shared.keys():
+                raise ValueError(f"{name}: the test model's {table[1:]} "
+                                 "are not the training model's")
+            mine.update(shared)
+    return twin
+
+
+def val_evaluator(cfg, model: nn.Module, seed: int, device
+                  ) -> Tuple[Optional[Callable[[], Dict[str, float]]], int,
+                             str]:
+    """(the evaluator ``run_training`` calls, the interval in epochs, the
+    metric) of the config's ``evaluation`` over ``data.val``; no evaluator
+    when the config has neither or the split cannot be built."""
+    eval_cfg = cfg.get("evaluation", {}) or {}
+    metric = str(eval_cfg.get("metric", "loss"))
+    interval = max(1, int(eval_cfg.get("interval", 1)))
+    if not eval_cfg or not cfg.get("data", {}).get("val"):
+        return None, interval, metric
+    try:
+        dataset = build_dataset(cfg, "val", seed=seed)
+    except (OSError, KeyError, ValueError) as e:
+        print(f"WARNING: val split unavailable ({e}); mid-training "
+              "evaluation disabled", flush=True)
+        return None, interval, metric
+    loader = SceneLoader(dataset, shuffle=False)
+    twin = test_twin(cfg, model)
+    return (lambda: evaluate_split(twin, loader, device, metric), interval,
+            metric)
 
 
 def main(argv: Optional[Sequence[str]] = None
@@ -129,13 +190,16 @@ def main(argv: Optional[Sequence[str]] = None
     state = TrainState(model=model, optimizer=optimizer)
     if resume_from:
         load_checkpoint(resume_from, state)
+    evaluate, eval_interval, eval_metric = val_evaluator(cfg, model,
+                                                         args.seed, dev)
     return run_training(
         state, loader, epochs=int(cfg.get("total_epochs", 1)),
         work_dir=work_dir, device=dev, seed=args.seed,
         log_interval=int(cfg.get("log_config", {}).get("interval", 10)),
         checkpoint_interval=int(cfg.get("checkpoint_config", {}).get(
             "interval", 10)),
-        max_steps=args.max_steps)
+        max_steps=args.max_steps, evaluate=evaluate,
+        eval_interval=eval_interval, eval_metric=eval_metric)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,10 @@
-"""The training step and the epoch loop (port of
+"""The training step, the validation scores and the epoch loop (port of
 ``cnrma_tpu/train/loop.py``: ``total_loss``, ``make_train_step``'s step on
-one device, ``run_training`` without the mid-training evaluation).  The
-step runs any of the three stages' models (``CNRMA``, ``Atlas``,
-``FCAF3DOnly``) through its ``forward_train``, on the batch keys it takes.
+one device, ``evaluate_val``, ``evaluate_val_map`` and ``run_training`` with
+its mid-training evaluation and ``best`` checkpoint).  The step runs any of
+the three stages' models (``CNRMA``, ``Atlas``, ``FCAF3DOnly``) through its
+``forward_train``, on the batch keys it takes; the validation runs their
+test forward, which returns the losses where the batch holds ground truth.
 
 A step: the training forward (batch statistics in the norms, which update
 their running statistics once), the backward, the optimizer's clip and
@@ -16,11 +18,13 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from cnrma_torch.eval.indoor_eval import indoor_eval
+from cnrma_torch.ops.nms import multiclass_nms_np
 from cnrma_torch.timing import mark, stage_marks
 from cnrma_torch.train.optim import Optimizer
 from cnrma_torch.train.state import TrainState, save_checkpoint
@@ -79,13 +83,120 @@ def train_step(model: torch.nn.Module, optimizer: Optimizer,
     return log_vars
 
 
+def _scene_boxes(out: Dict[str, Any], batch: Dict[str, Any], i: int,
+                 with_yaw: bool, score_thr: float, iou_thr: float,
+                 device) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Scene ``i``'s NMS-kept predictions and its GT, bottom-z, as
+    ``indoor_eval`` takes them.  The GT keeps its yaw on a yaw model (the
+    JAX function drops it: ROADMAP F15)."""
+    bv = out["bbox_valid"][i].cpu().numpy()
+    boxes, scores, labels = multiclass_nms_np(
+        out["bboxes"][i].float().cpu().numpy()[bv],
+        out["scores"][i].float().cpu().numpy()[bv],
+        score_thr=score_thr, iou_thr=iou_thr, device=device)
+    # model boxes and GT carry gravity-center z; indoor_eval takes bottom z
+    b = np.array(boxes, np.float32, copy=True)
+    if len(b):
+        b[:, 2] -= b[:, 5] / 2
+    gv = np.asarray(batch["gt_valid"][i], bool)
+    g = np.array(np.asarray(batch["gt_boxes"][i])[gv], np.float32, copy=True)
+    if len(g):
+        g[:, 2] -= g[:, 5] / 2
+    return ({"boxes": b, "scores": scores, "labels": labels},
+            {"gt_boxes": g[:, :7 if with_yaw else 6],
+             "labels": np.asarray(batch["gt_labels"][i])[gv]})
+
+
+@torch.no_grad()
+def _score_val(model: torch.nn.Module, val_loader, device, losses: bool,
+               boxes: bool, score_thr: float = 0.01, iou_thr: float = 0.5,
+               uniforms: Optional[Sequence[torch.Tensor]] = None
+               ) -> Dict[str, float]:
+    """One pass of ``model``'s test forward (eval-mode norms) over
+    ``val_loader``: the mean losses (``losses``) and the mAP (``boxes``).
+    Batch ``i``'s subsample draws from a generator seeded ``i`` (the test
+    CLI's per-scene seed), or ``uniforms[i]`` where given."""
+    device = torch.device(device)
+    was_training = model.training
+    model.eval()
+    sums: Dict[str, float] = {}
+    n = 0
+    gts, preds = [], []
+    try:
+        for i, batch in enumerate(val_loader):
+            on_device = device_batch(batch, device)
+            draw = ({"uniform": uniforms[i].to(device)} if uniforms
+                    is not None else {"generator": torch.Generator(
+                        device=device).manual_seed(i)})
+            out = model(on_device, **draw)
+            if losses:
+                found = {k: float(v) for k, v in out["losses"].items()}
+                found["total_loss"] = sum(v for k, v in found.items()
+                                          if "loss" in k)
+                for k, v in found.items():
+                    sums[k] = sums.get(k, 0.0) + v
+                n += 1
+            if boxes:
+                for b in range(out["bboxes"].shape[0]):
+                    p, g = _scene_boxes(out, batch, b, model.with_yaw,
+                                        score_thr, iou_thr, device)
+                    preds.append(p)
+                    gts.append(g)
+    finally:
+        model.train(was_training)
+    scores = {f"val/{k}": v / max(n, 1) for k, v in sums.items()}
+    if boxes:
+        m = indoor_eval(gts, preds, iou_thrs=(0.25, 0.5),
+                        rotated=bool(model.with_yaw), logger=None,
+                        device=device)
+        scores.update({"val/mAP_0.25": m.get("mAP_0.25", 0.0),
+                       "val/mAP_0.50": m.get("mAP_0.50", 0.0),
+                       "val/mAR_0.25": m.get("mAR_0.25", 0.0)})
+    return scores
+
+
+def evaluate_val(model: torch.nn.Module, val_loader, device,
+                 uniforms: Optional[Sequence[torch.Tensor]] = None
+                 ) -> Dict[str, float]:
+    """The mean over the batches of ``val_loader`` of each loss of the
+    test forward, and ``val/total_loss`` (JAX ``evaluate_val``): the
+    reference's mid-training ``evaluation`` scored by loss."""
+    return _score_val(model, val_loader, device, losses=True, boxes=False,
+                      uniforms=uniforms)
+
+
+def evaluate_val_map(model: torch.nn.Module, val_loader, device,
+                     score_thr: float = 0.01, iou_thr: float = 0.5,
+                     uniforms: Optional[Sequence[torch.Tensor]] = None
+                     ) -> Dict[str, float]:
+    """``val/mAP_0.25``, ``val/mAP_0.50`` and ``val/mAR_0.25`` over
+    ``val_loader`` (JAX ``evaluate_val_map``): per scene the test forward,
+    the per-class NMS on ``device``, then ``indoor_eval`` (rotated for a
+    yaw model); ``{}`` for a model without boxes (``Atlas``)."""
+    if not hasattr(model, "detector"):
+        return {}
+    return _score_val(model, val_loader, device, losses=False, boxes=True,
+                      score_thr=score_thr, iou_thr=iou_thr,
+                      uniforms=uniforms)
+
+
+def evaluate_split(model: torch.nn.Module, val_loader, device,
+                   metric: str = "loss") -> Dict[str, float]:
+    """``evaluate_val`` and, for ``metric='mAP'``, ``evaluate_val_map`` in
+    one pass of the test forward over ``val_loader``."""
+    return _score_val(model, val_loader, device, losses=True,
+                      boxes=metric == "mAP" and hasattr(model, "detector"))
+
+
 class TextLogger:
     """A line every ``interval`` steps, to stdout and ``train.log``."""
 
     def __init__(self, work_dir: Optional[str], interval: int = 10):
         self.interval = max(1, interval)
-        self.path = (os.path.join(work_dir, "train.log") if work_dir
-                     else None)
+        self.path = None
+        if work_dir:
+            os.makedirs(work_dir, exist_ok=True)
+            self.path = os.path.join(work_dir, "train.log")
 
     def __call__(self, rec: Dict[str, Any], force: bool = False) -> None:
         if rec["step"] % self.interval and not force:
@@ -99,7 +210,16 @@ class TextLogger:
         if rec.get("stages_ms"):
             parts.append("stages ms " + " ".join(
                 f"{k} {v:.1f}" for k, v in rec["stages_ms"].items()))
-        line = "  ".join(parts)
+        self._write("  ".join(parts))
+
+    def val(self, epoch: int, step: int, scores: Dict[str, float],
+            seconds: float) -> None:
+        """The line of one evaluation of the val split, always written."""
+        self._write("  ".join([f"epoch {epoch}", f"iter {step}",
+                               f"eval {seconds:.3f}s"]
+                              + [f"{k} {v:.4f}" for k, v in scores.items()]))
+
+    def _write(self, line: str) -> None:
         print(line, flush=True)
         if self.path:
             with open(self.path, "a") as f:
@@ -109,7 +229,9 @@ class TextLogger:
 def run_training(state: TrainState, loader, *, epochs: int, work_dir: str,
                  device, seed: int = 0, log_interval: int = 10,
                  checkpoint_interval: int = 10,
-                 max_steps: Optional[int] = None
+                 max_steps: Optional[int] = None,
+                 evaluate: Optional[Callable[[], Dict[str, float]]] = None,
+                 eval_interval: int = 1, eval_metric: str = "loss"
                  ) -> Tuple[List[Dict[str, Any]], Optional[str]]:
     """Epochs ``state.epoch`` .. ``epochs - 1`` over ``loader``; stops after
     ``max_steps`` optimizer steps in all.  Checkpoints
@@ -121,12 +243,23 @@ def run_training(state: TrainState, loader, *, epochs: int, work_dir: str,
     seconds, synchronised), ``wait_s`` and ``load_s`` (the reader's),
     ``stages_ms`` (each stage's milliseconds: CUDA events on a GPU, so
     device time in stream order, the host clock on the CPU) and, on a
-    GPU, ``peak_gib`` (the step's peak device memory)."""
+    GPU, ``peak_gib`` (the step's peak device memory).
+
+    With ``evaluate`` (the val split's scores of the model as it stands,
+    e.g. ``evaluate_split``), after every ``eval_interval``-th epoch (the
+    interval counts epochs, as the JAX package's does), the last, and a
+    stop by ``max_steps``: the scores are logged, added to that epoch's
+    last record as ``val`` with the seconds they took (``eval_s``), and
+    ``{work_dir}/best.pt`` keeps the state with the lowest
+    ``val/total_loss``, or with ``eval_metric='mAP'`` the highest
+    ``val/mAP_0.25`` (its ``meta``: ``epoch``, ``val_total_loss``,
+    ``val_mAP_0.25``, ``eval_metric``)."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     logger = TextLogger(work_dir, log_interval)
     records: List[Dict[str, Any]] = []
     path = None
+    best = float("inf")
     done = max_steps is not None and state.step >= max_steps
     while state.epoch < epochs and not done:
         for batch in loader:
@@ -161,7 +294,37 @@ def run_training(state: TrainState, loader, *, epochs: int, work_dir: str,
         if not done:
             state.epoch += 1
             name = f"epoch_{state.epoch}.pt"
+        epoch = state.epoch + 1 if done else state.epoch
+        if evaluate is not None and records and (
+                done or epoch % eval_interval == 0 or epoch == epochs):
+            best = _evaluate(state, evaluate, logger, records[-1], epoch,
+                             eval_metric, best, work_dir, device)
         if done or state.epoch % checkpoint_interval == 0 \
                 or state.epoch == epochs:
             path = save_checkpoint(os.path.join(work_dir, name), state)
     return records, path
+
+
+def _evaluate(state: TrainState, evaluate, logger: TextLogger,
+              rec: Dict[str, Any], epoch: int, metric: str, best: float,
+              work_dir: str, device: torch.device) -> float:
+    """One evaluation of the val split after epoch ``epoch`` (1-based):
+    logged, kept in ``rec``, and ``best.pt`` written where it beats
+    ``best`` (a loss minimises, an mAP maximises).  Returns the best
+    score."""
+    t0 = time.perf_counter()
+    scores = evaluate()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    rec["eval_s"] = time.perf_counter() - t0
+    rec["val"] = scores
+    logger.val(epoch, state.step, scores, rec["eval_s"])
+    score = (-scores.get("val/mAP_0.25", 0.0) if metric == "mAP"
+             else scores.get("val/total_loss", float("inf")))
+    if score < best:
+        best = score
+        save_checkpoint(os.path.join(work_dir, "best.pt"), state, meta={
+            "epoch": epoch, "val_total_loss": scores.get("val/total_loss"),
+            "val_mAP_0.25": scores.get("val/mAP_0.25"),
+            "eval_metric": metric})
+    return best

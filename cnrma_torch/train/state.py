@@ -3,7 +3,8 @@
 
 A checkpoint is one ``.pt`` file: ``{"step", "epoch", "model",
 "optimizer"}``, the model's ``state_dict`` (parameters and batch-norm
-statistics) and the optimizer's.  ``load_checkpoint`` is the reference's
+statistics) and the optimizer's, and for the ``best`` checkpoint of the
+mid-training evaluation its ``meta`` (the epoch and the val scores).  ``load_checkpoint`` is the reference's
 ``resume_from`` (everything); its ``load_from`` (weights and statistics
 only) is ``tools/test.py:load_parameters``, which reads the ``"model"``
 entry of such a file as the test CLI does.
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -31,12 +32,16 @@ class TrainState:
     epoch: int = 0
 
 
-def save_checkpoint(path: str, state: TrainState) -> str:
-    """Write ``state`` to ``path`` (atomically) and return the path."""
+def save_checkpoint(path: str, state: TrainState,
+                    meta: Optional[Dict[str, Any]] = None) -> str:
+    """Write ``state`` (and ``meta``, where given) to ``path`` atomically
+    and return the path."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     payload = {"step": state.step, "epoch": state.epoch,
                "model": state.model.state_dict(),
                "optimizer": state.optimizer.state_dict()}
+    if meta is not None:
+        payload["meta"] = meta
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)

@@ -38,7 +38,7 @@ import cnrma_torch.ops.losses
 import cnrma_torch.convert, cnrma_torch.data.points_dataset
 import cnrma_torch.eval.mesh_eval, cnrma_torch.models.fcaf3d_only
 import cnrma_torch.tools.combine_models, cnrma_torch.tools.evaluate_mesh
-import cnrma_torch.tools.overflow_survey
+import cnrma_torch.tools.overflow_survey, cnrma_torch.tools.overfit_full
 import chip_smoke
 from cnrma_torch.models.cn_rma import CNRMA
 from cnrma_torch.models.fcaf3d import DetectionCapacities

@@ -228,9 +228,10 @@ def test_builder_knobs(options, monkeypatch):
 
 
 def test_builder_refuses_later_items(tmp_path):
-    """Depth marching is refused, naming its ROADMAP queue; the ARKit yaw
-    detector and reader, the stage-1 and the stage-2 models build (each
-    was refused until it was ported)."""
+    """Depth marching, the ARKit yaw detector and reader, the stage-1 and
+    the stage-2 models build (each was refused until it was ported);
+    depth marching keeps 2 points a side of the surface when the config
+    sets none, as the JAX builder does."""
     from cnrma_torch.core import builder as t_builder
     from cnrma_torch.core.config import Config as TConfig
     from cnrma_torch.data.arkit import AtlasARKitDataset
@@ -239,8 +240,8 @@ def test_builder_refuses_later_items(tmp_path):
     from cnrma_torch.synthetic import write_arkit
     depth = TConfig.fromfile("configs/ray_marching_arkit.py")
     depth.merge_from_options({"model.ray_marching_type": "depth"})
-    with pytest.raises(NotImplementedError, match="depth.*ROADMAP"):
-        t_builder.build_model(depth)
+    model = t_builder.build_model(depth)
+    assert model.ray_marching_type == "depth" and model.depth_points == 2
     arkit = TConfig.fromfile("configs/ray_marching_arkit.py")
     model = t_builder.build_model(arkit)
     assert type(model) is CNRMA and model.with_yaw and model.detector.with_yaw

@@ -455,7 +455,8 @@ def test_atlas_step_check_catches_planted_fault(atlas_step, monkeypatch):
 def test_atlas_test_forward_matches_jax(atlas_step):
     """The Atlas test forward (running statistics, no detector) on the
     port's default initialisation (seed 0) with random norms: each scale's
-    TSDF within 1e-4 of its scale, and no other output."""
+    TSDF within 1e-4 of its scale, and no other output but the losses of
+    the batch's TSDF targets."""
     _, state, tb, model, batch = atlas_step
     torch.manual_seed(0)
     port = tcn.Atlas(voxel_dim=(16, 16, 16), voxel_size=0.1).eval()
@@ -464,7 +465,7 @@ def test_atlas_test_forward_matches_jax(atlas_step):
     want = _run_jax(lambda v: model.apply(v, batch, train=False)["tsdf"],
                     variables)
     out = port(tb)
-    assert set(out) == {"tsdf"} and set(out["tsdf"]) == set(want)
+    assert set(out) == {"tsdf", "losses"} and set(out["tsdf"]) == set(want)
     for k, w in want.items():
         w = np.asarray(w)
         assert w.std() > 1e-3, k
@@ -578,7 +579,7 @@ def test_fcaf3d_only_boxes_match_jax(points_case, monkeypatch):
     monkeypatch.setattr(j_sparse, "LUT_CELL_BUDGET", 0)
     out = _run_jax(lambda v: model.apply(v, jb, train=False), variables)
     got = port.eval()(tb)
-    assert set(got) == {"bboxes", "scores", "bbox_valid"}
+    assert set(got) == {"bboxes", "scores", "bbox_valid", "losses"}
 
     def ordered(b, s, v):
         b, s, v = np.asarray(b[0]), np.asarray(s[0]), np.asarray(v[0])
