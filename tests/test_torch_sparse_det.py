@@ -204,6 +204,37 @@ def test_decode_bbox_overflow_rows():
         assert overflowed_rows(broken) is None
 
 
+@pytest.mark.parametrize("n_reg", [6, 8])
+def test_head_overflow_rows(n_reg):
+    """``head_overflow`` counts the head's valid rows whose face distances
+    or (yaw) ``q`` pass fp32 in ``exp``, where the decoded box is not
+    finite, apart from the rows not finite for another reason; invalid
+    rows are not read."""
+    from cnrma_torch.tools.overflow_survey import head_overflow
+    rng = np.random.RandomState(11)
+    reg = rng.randn(10, n_reg).astype(np.float32)
+    reg[1, 0] = 95.0                    # a face distance past fp32
+    reg[9, 3] = 95.0                    # the same in an invalid row
+    if n_reg == 8:
+        reg[2, 6:] = 70.0               # |(sin, cos)| 99: q past fp32
+    dist = _t(reg[:, :6]).exp()
+    pred = torch.cat([dist, _t(reg[:, 6:])], dim=1)
+    pred[4, 2] = float("nan")           # not from exp's overflow
+    pred[8, 1] = float("nan")           # invalid row
+    cls = _t(rng.randn(10, 3).astype(np.float32))
+    cls[6, 0] = float("inf")
+    valid = torch.ones(10, dtype=torch.bool)
+    valid[8:] = False
+    lvl = tdet.LevelOut(_t(rng.randn(10).astype(np.float32)), pred, cls,
+                        _t(rng.randn(10, 3).astype(np.float32)), valid)
+    over = 2 if n_reg == 8 else 1
+    assert head_overflow([lvl, lvl]) == (2 * over, 4)
+    boxes = tdet.decode_bbox(lvl.points, pred)
+    finite = torch.isfinite(boxes).all(dim=1)
+    assert not finite[1] and (n_reg == 6 or not finite[2])
+    assert finite[[0, 3, 5, 7]].all()
+
+
 # DetectionCapacities.tiny(); the coarsest level holds one voxel, so levels
 # 2, 1, 0 have 8, 64, 512 children, all within the neck capacities when the
 # point threshold does not cut them
