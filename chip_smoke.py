@@ -3,9 +3,9 @@
 holds each against its plain torch version at the full ScanNet and ARKit
 shapes, drives the CN-RMA test-mode forward (NeuS and depth marching), the
 test CLI, the train CLI with its mid-training evaluation, the three-stage
-training recipe and the ARKit yaw path at full width, checks small inputs
-against the CPU reference path, and runs the whole-model learning check on
-synthetic rooms.
+training recipe, the ARKit yaw path and ScanNet's data preparation at
+full width, checks small inputs against the CPU reference path, and runs
+the whole-model learning check on synthetic rooms.
 
     python3 chip_smoke.py
 
@@ -120,6 +120,20 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
      surfaces, each with positives for the rotated IoU loss; K1 and K2 at
      the ARKit test shape and K1b at its training shape against their
      plain versions, timed (their device times in phase 8).
+  prep. ScanNet's data preparation through the port's CLIs on one
+     synthetic scene under ``build/``: a ``.sens`` of 300 frames (1296x968
+     JPEG colour, 640x480 depth ray-cast from the planted room of the
+     208x208x80 stage-3 test extent) and its scan; ``extract_posed_images``,
+     ``generate_tsdf`` on the card on the F17 route (the colour intrinsic)
+     and on the consistent route (the depth intrinsic),
+     ``batch_load_scannet_data``, ``aggregate_data`` (train, val), one
+     stage-3 train CLI step at full width on the result (finite losses;
+     K1, K1b and K2 once); the fusion's CUDA-event time at 4, 8 and 16 cm
+     (frames and voxel-frames a second), the host's PNG read, peak memory
+     and the chain's wall time; the card's fusion against the CPU's at 16
+     cm (300 frames) and 4 cm (20 frames) by the CPU tests' rule; the 4 cm
+     TSDF's sign agreement with the planted room (the consistent route
+     held at ``PREP_SIGN_BOUND``, the F17 route's printed).
   learn. ``python -m cnrma_torch.tools.overfit_full``, ScanNet-style and
      ``--yaw``: the tiny CNRMA trained on two synthetic rooms, one scene a
      step; the first and last total and reconstruction losses, mAP@0.25
@@ -158,6 +172,7 @@ import io
 import json
 import math
 import os
+import pickle
 import re
 import shutil
 import statistics
@@ -234,10 +249,7 @@ def phase_device() -> str:
                          "is_available() is False); this script runs only "
                          "on a GPU")
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip()
+    smi = card()
     # fp32 means fp32: no TF32 in convolutions or matmuls (the main path
     # itself runs in bf16)
     torch.backends.cudnn.allow_tf32 = False
@@ -2554,6 +2566,232 @@ def phase_arkit(dev) -> list:
         shutil.rmtree(root, ignore_errors=True)
 
 
+PREP_FRAMES = 300           # extract_posed_images' default --max_frames
+PREP_TSDF_DIM = (208, 208, 80)   # the stage-3 test extent at 4 cm
+PREP_CPU_FRAMES = {0.04: 20, 0.16: PREP_FRAMES}   # held against the CPU
+# the consistent route's sign agreement at 4 cm: 0.9704 of 37,827
+# observed voxels on the first H100 run of this phase, the F17 route's
+# 0.4272 of 25,487 (the scene is made from a seed: the same every run)
+PREP_SIGN_BOUND = 0.95
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+
+
+def _prep_fusion(dev, cons: str, scene: str, on: str) -> None:
+    """The scene's frames read as ``generate_tsdf`` reads them (the host's
+    PNG decode and pose text timed), fused on the card at 4, 8 and 16 cm
+    (CUDA events with the frames already on the card, then streamed from
+    the host as the CLI does; peak memory), and held against the CPU's
+    fusion of the same frames (``PREP_CPU_FRAMES``) by the CPU tests'
+    rule (``tsdf_fusion.fusion_mismatch``)."""
+    from cnrma_torch.geometry import tsdf_fusion as fus
+    from cnrma_torch.tools.data_prepare import generate_tsdf
+    args = generate_tsdf.parse_args(["--data_path", cons, "--save_path", "",
+                                     "--device", "cpu"])
+    t0 = time.perf_counter()
+    intr, depths, c2w, projs, _ = generate_tsdf.read_scene(args, scene)
+    read_s = time.perf_counter() - t0
+    origin, dim4 = generate_tsdf.scene_bounds(args, intr, depths, c2w)
+    n = len(depths)
+    log(f"[prep] host read of {n} frames (640x480 depth PNG decode and pose "
+        f"text): {read_s:.3f} s, {1e3 * read_s / n:.2f} ms a frame {on}")
+    projs = np.stack(projs).astype(np.float32)
+    ok = np.ones(n, bool)
+    frames = torch.from_numpy(np.stack(depths)).to(dev)
+    for vs in (0.04, 0.08, 0.16):
+        k = int(round(vs / 0.04))
+        dim = tuple(d // k for d in dim4)
+        voxels = int(np.prod(dim))
+        fus.fuse_tsdf(frames[:2], projs[:2], ok[:2], origin, dim, vs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fus.fuse_tsdf(frames, projs, ok, origin, dim, vs)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        t0 = time.perf_counter()
+        card_t, card_w = fus.fuse_tsdf(depths, projs, ok, origin, dim, vs,
+                                       device=dev)
+        torch.cuda.synchronize()
+        streamed = time.perf_counter() - t0
+        log(f"[prep] fusion at {100 * vs:.0f} cm, {dim[0]}x{dim[1]}x{dim[2]} "
+            f"({voxels / 1e6:.2f}M voxels), {n} frames: {ms:.2f} ms of CUDA "
+            f"events with the frames on the card, {1e3 * n / ms:.0f} frames "
+            f"a second, {1e3 * n * voxels / ms / 1e9:.2f}G voxel-frames a "
+            f"second; streamed from the host {streamed:.3f} s; peak memory "
+            f"{peak:.3f} GiB over the {base / 2 ** 30:.3f} GiB held before "
+            f"{on}")
+        m = PREP_CPU_FRAMES.get(vs)
+        if m is None:
+            continue
+        if m < n:
+            card_t, card_w = fus.fuse_tsdf(frames[:m], projs[:m], ok[:m],
+                                           origin, dim, vs)
+        t0 = time.perf_counter()
+        cpu = fus.fuse_tsdf(depths[:m], projs[:m], ok[:m], origin, dim, vs)
+        cpu_s = time.perf_counter() - t0
+        share, unexplained = fus.fusion_mismatch(
+            (card_t.cpu(), card_w.cpu()), cpu, depths[:m], projs[:m], origin,
+            vs)
+        log(f"[prep] card against CPU at {100 * vs:.0f} cm over {m} frames: "
+            f"{share:.2e} of the voxels differ, {len(unexplained)} of them "
+            f"no near tie; observed voxels {int((card_w > 0).sum())}; the "
+            f"CPU took {cpu_s:.2f} s")
+        if len(unexplained) or share > fus.PARITY_MAX_SHARE:
+            raise AssertionError(f"[prep] the card's fusion differs from the "
+                                 f"CPU's at {100 * vs:.0f} cm: share "
+                                 f"{share}, voxels {unexplained[:5]}")
+        del card_t, card_w, cpu
+    del frames
+    torch.cuda.empty_cache()
+
+
+def phase_prep(dev) -> None:
+    """ScanNet's data preparation (``doc/data.md``'s chain) through the
+    port's CLIs on one synthetic scene of realistic size, written under
+    ``build/``: a ``.sens`` of ``PREP_FRAMES`` frames (1296x968 JPEG colour,
+    640x480 depth ray-cast from the planted room through the depth
+    camera's intrinsic) and the scan of the same room.
+    ``extract_posed_images``; ``generate_tsdf --device cuda:0`` on the
+    F17 route (the colour intrinsic, as ``extract_posed_images`` writes
+    it) and on the consistent route (the same PNGs through the depth
+    intrinsic); ``batch_load_scannet_data``; ``aggregate_data`` for train
+    and val; one stage-3 step of the train CLI at full width on the
+    result, with finite losses and K1, K1b and K2 once.  Then the fusion
+    timed on the card and held against the CPU (``_prep_fusion``), and
+    the 4 cm TSDFs' sign agreement with the planted room: at least
+    ``PREP_SIGN_BOUND`` on the consistent route; the F17 route's printed
+    beside it."""
+    from cnrma_torch.ops.backproject import VOLUME_ACCUM, VOLUME_ACCUM_BWD
+    from cnrma_torch.ops.ray_marching import RAY_MARCH
+    from cnrma_torch.synthetic import (fused_sign_agreement, room_boxes,
+                                       write_scannet_raw)
+    from cnrma_torch.tools.data_prepare import (
+        aggregate_data, batch_load_scannet_data, extract_posed_images,
+        generate_tsdf)
+    counters = {"volume_accum": VOLUME_ACCUM,
+                "volume_accum_bwd": VOLUME_ACCUM_BWD, "ray_march": RAY_MARCH}
+    on = f"({card()})"
+    scene = "scene0000_00"
+    os.makedirs("build", exist_ok=True)
+    root = os.path.abspath(tempfile.mkdtemp(prefix="prep_", dir="build"))
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        cams = write_scannet_raw(root, n_frames=PREP_FRAMES,
+                                 tsdf_dim=PREP_TSDF_DIM)
+        sens = os.path.join(root, "scans", scene, scene + ".sens")
+        log(f"[prep] wrote the raw scene ({PREP_FRAMES} frames of 1296x968 "
+            f"JPEG and 640x480 depth in a .sens of "
+            f"{os.path.getsize(sens) / 2 ** 20:.1f} MiB, the scan) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        data, meta = os.path.join(root, "scannet"), os.path.join(root,
+                                                                 "meta_data")
+        posed = os.path.join(data, "posed_images")
+        f17 = os.path.join(root, "f17")
+        cons = os.path.join(root, "consistent")
+        steps = {}
+
+        def step(name, fn, argv):
+            t = time.perf_counter()
+            fn(argv)
+            steps[name] = time.perf_counter() - t
+
+        t_chain = time.perf_counter()
+        step("extract_posed_images", extract_posed_images.main,
+             ["--scans_path", os.path.join(root, "scans"), "--output_path",
+              posed])
+        step("generate_tsdf (F17 route)", generate_tsdf.main,
+             ["--data_path", data, "--save_path", f17, "--device", "cuda:0"])
+        own = os.path.join(cons, "posed_images", scene)
+        os.makedirs(own)
+        for f in os.listdir(os.path.join(posed, scene)):
+            if f != "intrinsic.txt":
+                os.symlink(os.path.join(posed, scene, f), os.path.join(own, f))
+        np.savetxt(os.path.join(own, "intrinsic.txt"),
+                   cams["intrinsic_depth"], fmt="%.6f")
+        step("generate_tsdf", generate_tsdf.main,
+             ["--data_path", cons, "--save_path", data, "--device",
+              "cuda:0"])
+        step("batch_load_scannet_data", batch_load_scannet_data.main,
+             ["--scans_path", os.path.join(root, "scans"), "--label_map",
+              os.path.join(meta, "scannetv2-labels.combined.tsv"),
+              "--output_path", os.path.join(data, "scannet_instance_data")])
+        for split in ("train", "val"):
+            step(f"aggregate_data {split}", aggregate_data.main,
+                 ["--dataset", "scannet", "--data_path", data, "--split",
+                  split, "--scene_list",
+                  os.path.join(meta, f"scannetv2_{split}.txt")])
+        chain_s = time.perf_counter() - t_chain
+        log(f"[prep] the chain in {chain_s:.2f} s of wall time: "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in steps.items()) + f" {on}")
+        tsdf_dir = os.path.join(data, "atlas_tsdf", scene)
+        if sorted(os.listdir(tsdf_dir)) != ["info.json", "tsdf_04.npz",
+                                            "tsdf_08.npz", "tsdf_16.npz"]:
+            raise AssertionError(f"[prep] generate_tsdf wrote "
+                                 f"{sorted(os.listdir(tsdf_dir))}")
+        inst = sorted(os.listdir(os.path.join(data, "scannet_instance_data")))
+        with open(os.path.join(data, "scannet_infos_train.pkl"), "rb") as f:
+            infos = pickle.load(f)
+        if (len(inst) != 6 or [i["scene"] for i in infos] != [scene]
+                or len(infos[0]["total_image_ids"]) != PREP_FRAMES
+                or infos[0]["annos"]["gt_num"] != 4):
+            got = [(i["scene"], len(i["total_image_ids"]),
+                    i["annos"]["gt_num"]) for i in infos]
+            raise AssertionError(f"[prep] instance data {inst}, infos "
+                                 f"(scene, frames, boxes) {got}")
+        for name in ("tsdf_04", "tsdf_08", "tsdf_16"):
+            with np.load(os.path.join(tsdf_dir, name + ".npz")) as z:
+                t = z["tsdf"]
+                log(f"[prep] {name}: {t.shape}, origin "
+                    f"{np.round(z['origin'][0], 4).tolist()}, observed "
+                    f"{(np.abs(t) < 1).mean():.4f}, free only "
+                    f"{(t == -1).mean():.4f}, unseen {(t == 1).mean():.4f}")
+                if not np.isfinite(t).all():
+                    raise AssertionError(f"[prep] {name} not finite")
+
+        train = os.path.join(data, "scannet_infos_train.pkl")
+        records, _, launches, _ = _run_train_cli(
+            [CLI_CONFIG, "--work-dir", os.path.join(root, "s3"),
+             "--max-steps", "1", "--cfg-options",
+             f"data.train.data_root={data}", f"data.train.ann_file={train}",
+             "log_config.interval=1"], counters, 1, "prep stage 3")
+        if launches != {"volume_accum": 1, "volume_accum_bwd": 1,
+                        "ray_march": 1}:
+            raise AssertionError(f"[prep] the stage-3 step must launch K1, "
+                                 f"K1b and K2 once: {launches}")
+
+        _prep_fusion(dev, cons, scene, on)
+        extent = np.asarray(PREP_TSDF_DIM, np.float64) * 0.04
+        boxes = room_boxes(extent)
+        shares = {}
+        for route, base in (("consistent", data), ("F17", f17)):
+            with np.load(os.path.join(base, "atlas_tsdf", scene,
+                                      "tsdf_04.npz")) as z:
+                shares[route] = fused_sign_agreement(
+                    z["tsdf"], z["origin"][0], 0.04, extent, boxes)
+            log(f"[prep] {route} route at 4 cm: {shares[route][0]:.4f} of "
+                f"{shares[route][1]} observed voxels agree in sign with the "
+                f"planted room")
+        if shares["consistent"][0] < PREP_SIGN_BOUND:
+            raise AssertionError(f"[prep] the consistent route's sign "
+                                 f"agreement {shares['consistent'][0]} is "
+                                 f"under {PREP_SIGN_BOUND}")
+        log(f"[prep] phase took {time.perf_counter() - t_phase:.1f} s {on}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 LEARN_STEPS = 80            # the times each room is trained on
 
 
@@ -2741,6 +2979,7 @@ def main() -> None:
     train_launches = phase_train_cli(dev)
     stage1_calls = phase_three_stages(dev)
     arkit_calls = phase_arkit(dev)
+    phase_prep(dev)
     phase_learn(dev)
     probes, probe_calls = phase_probes(dev)
     kernels = [

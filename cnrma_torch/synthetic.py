@@ -1,14 +1,22 @@
 """Synthetic scenes and parameters for driving the port without a dataset or
 a checkpoint: bench.py's ring of cameras, a sphere TSDF, bench.py's
 parameter recipe, whole ScanNet and ARKitScenes scenes on disk
-(``write_scannet``, ``write_arkit``) and stage-2 point dumps of them
-(``write_point_dumps``), all made from a seed."""
+(``write_scannet``, ``write_arkit``), stage-2 point dumps of them
+(``write_point_dumps``), and ScanNet's raw inputs to the data preparation
+(``write_scannet_raw``: a ``.sens`` stream with depth ray-cast from the
+planted room, and the scan's mesh and annotations), all made from a
+seed."""
 
 from __future__ import annotations
 
+import io
+import json
 import os
 import pickle
-from typing import List, Optional, Sequence, Tuple
+import struct
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -97,6 +105,16 @@ def room_tsdf(dim: Sequence[int], voxel_size: float, extent: Sequence[float],
     axes = [(np.arange(n, dtype=np.float32) + 0.5) * voxel_size
             for n in dim]
     x, y, z = np.meshgrid(*axes, indexing="ij")
+    sdf = room_sdf(x, y, z, extent, boxes, yaw)
+    return np.clip(sdf / trunc, -1.0, 1.0).astype(np.float32)
+
+
+def room_sdf(x: np.ndarray, y: np.ndarray, z: np.ndarray,
+             extent: Sequence[float], boxes: np.ndarray,
+             yaw: Optional[Sequence[float]] = None) -> np.ndarray:
+    """The signed distance (metres, positive in free space) of
+    ``room_tsdf``'s room at the points ``(x, y, z)``, in the room's frame
+    (its corner at the origin)."""
     ex, ey, _ = extent
     sdf = np.minimum.reduce([x - 0.1, ex - 0.1 - x, y - 0.1, ey - 0.1 - y,
                              z - 0.05])
@@ -110,7 +128,7 @@ def room_tsdf(dim: Sequence[int], voxel_size: float, extent: Sequence[float],
         outside = np.linalg.norm(np.maximum(q, 0.0), axis=0)
         box = outside + np.minimum(q.max(axis=0), 0.0)
         sdf = np.minimum(sdf, box)
-    return np.clip(sdf / trunc, -1.0, 1.0).astype(np.float32)
+    return sdf
 
 
 def _look_at(eye: np.ndarray, target: np.ndarray) -> np.ndarray:
@@ -126,12 +144,308 @@ def _look_at(eye: np.ndarray, target: np.ndarray) -> np.ndarray:
     return pose
 
 
+def ring_poses(extent: Sequence[float], n_frames: int,
+               target: Optional[Sequence[float]] = None,
+               radius: Optional[float] = None) -> List[np.ndarray]:
+    """``write_scannet``'s camera-to-world poses: a ring of ``radius`` (0.3
+    of the room's width) around ``target`` (the room's centre, a third of
+    its height up), 0.3 ``radius`` above it, each camera looking at it."""
+    extent = np.asarray(extent, np.float64)
+    center = np.asarray(target if target is not None else
+                        (extent[0] / 2, extent[1] / 2,
+                         min(extent[2], 3.0) / 3), np.float64)
+    radius = radius or 0.3 * min(extent[0], extent[1])
+    poses = []
+    for i in range(n_frames):
+        a = 2 * np.pi * i / n_frames
+        eye = center + radius * np.array([np.cos(a), np.sin(a), 0.3])
+        poses.append(_look_at(eye, center))
+    return poses
+
+
+def scannet_intrinsic(width: int, height: int) -> np.ndarray:
+    """[4, 4] colour intrinsic of ScanNet's 1296x968 camera, scaled to
+    ``width`` x ``height``."""
+    return np.array([[1170.0 * width / 1296, 0, width / 2, 0],
+                     [0, 1170.0 * height / 968, height / 2, 0],
+                     [0, 0, 1, 0], [0, 0, 0, 1]])
+
+
+def render_room_depth(poses: Sequence[np.ndarray], intrinsic: np.ndarray,
+                      size: Tuple[int, int], extent: Sequence[float],
+                      boxes: np.ndarray) -> np.ndarray:
+    """[F, H, W] fp32 depth (metres along the camera's z, 0 where a ray
+    meets nothing) of ``room_tsdf``'s room seen from camera-to-world
+    ``poses`` through ``intrinsic`` [3, 3] at ``size`` (width, height):
+    each pixel's ray cast on the host against the floor, the four walls
+    (of unbounded height, as ``room_sdf``'s) and the axis-aligned
+    gravity-center ``boxes`` [M, 6+]."""
+    w, h = size
+    ex, ey = float(extent[0]), float(extent[1])
+    v, u = np.meshgrid(np.arange(h, dtype=np.float32),
+                       np.arange(w, dtype=np.float32), indexing="ij")
+    cam = np.stack([(u.ravel() - np.float32(intrinsic[0, 2]))
+                    / np.float32(intrinsic[0, 0]),
+                    (v.ravel() - np.float32(intrinsic[1, 2]))
+                    / np.float32(intrinsic[1, 1]),
+                    np.ones(h * w, np.float32)])      # z = 1: t is depth
+    lo_box = boxes[:, :3] - boxes[:, 3:6] / 2
+    hi_box = boxes[:, :3] + boxes[:, 3:6] / 2
+    walls = ((0, (0.1, ex - 0.1)), (1, (0.1, ey - 0.1)), (2, (0.05,)))
+
+    def frame(pose: np.ndarray) -> np.ndarray:
+        d = pose[:3, :3].astype(np.float32) @ cam              # [3, HW]
+        o = pose[:3, 3]
+        inv = 1.0 / np.where(np.abs(d) < 1e-12, np.float32(1e-12), d)
+        # the room's inside, from within: its nearest plane ahead
+        t = np.full(h * w, np.inf, np.float32)
+        for axis, planes in walls:
+            for c in planes:
+                tp = np.float32(c - o[axis]) * inv[axis]
+                np.minimum(t, np.where(tp > 0, tp, np.inf), out=t)
+        for lo, hi in zip(lo_box, hi_box):
+            near = np.zeros(h * w, np.float32)
+            far = np.full(h * w, np.inf, np.float32)
+            for a in range(3):
+                t1 = np.float32(lo[a] - o[a]) * inv[a]
+                t2 = np.float32(hi[a] - o[a]) * inv[a]
+                np.maximum(near, np.minimum(t1, t2), out=near)
+                np.minimum(far, np.maximum(t1, t2), out=far)
+            hit = (near <= far) & (near > 0)
+            np.minimum(t, np.where(hit, near, np.inf), out=t)
+        return np.where(np.isfinite(t), t, 0.0).reshape(h, w)
+
+    # numpy's loops release the GIL: frames on a few threads
+    with ThreadPoolExecutor(max(1, min(8, os.cpu_count() or 1))) as pool:
+        return np.stack(list(pool.map(frame, poses))).astype(np.float32)
+
+
+def fused_sign_agreement(tsdf: np.ndarray, origin: Sequence[float],
+                         voxel_size: float, extent: Sequence[float],
+                         boxes: np.ndarray) -> Tuple[float, int]:
+    """(share, count) of a fused TSDF's observed voxels (``|tsdf| < 1``,
+    which is ``weight > 0``) whose sign agrees with ``room_sdf``'s room at
+    the voxel's position ``origin + index * voxel_size``.  The fusion's
+    sign is Atlas's, negative in front of the surface, and ``room_sdf``'s
+    positive in free space: agreement is ``sign(tsdf) == -sign(sdf)``;
+    voxels on the surface (sdf 0) are left out."""
+    seen = np.abs(tsdf) < 1
+    idx = np.nonzero(seen)
+    pts = [np.float32(origin[a]) + idx[a].astype(np.float32)
+           * np.float32(voxel_size) for a in range(3)]
+    sdf = room_sdf(*pts, extent, boxes)
+    val = tsdf[idx]
+    keep = (sdf != 0) & (val != 0)
+    agree = np.sign(val[keep]) == -np.sign(sdf[keep])
+    return (float(agree.mean()) if agree.size else 0.0), int(agree.size)
+
+
+def depth_mm(depth: np.ndarray) -> np.ndarray:
+    """Metric depth -> uint16 millimetres, ScanNet's depth PNG (0 where
+    invalid or beyond 65.535 m)."""
+    mm = np.round(depth.astype(np.float64) * 1000.0)
+    return np.where((mm > 0) & (mm < 65536), mm, 0).astype(np.uint16)
+
+
+# ScanNet's depth camera, scaled from the colour camera's 1296x968 to
+# 640x480 (the .sens depth size)
+SCANNET_COLOR_SIZE = (1296, 968)
+SCANNET_DEPTH_SIZE = (640, 480)
+
+
+def write_sens(path: str, poses: Sequence[np.ndarray],
+               colors: Sequence[bytes], depths_mm: Sequence[np.ndarray],
+               intrinsic_color: np.ndarray, intrinsic_depth: np.ndarray,
+               color_size: Tuple[int, int], depth_size: Tuple[int, int]
+               ) -> None:
+    """Write a ScanNet ``.sens`` stream (version 4): the header with both
+    cameras' [4, 4] intrinsics (identity extrinsics), JPEG colour and
+    ``zlib_ushort`` depth (mm, depth shift 1000), then one record a frame:
+    its camera-to-world pose, two timestamps, the colour JPEG ``colors[i]``
+    and the compressed ``depths_mm[i]``."""
+    name = b"synthetic"
+    eye = np.eye(4, dtype=np.float32)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<IQ", 4, len(name)) + name)
+        for m in (intrinsic_color, eye, intrinsic_depth, eye):
+            f.write(np.asarray(m, "<f4").reshape(4, 4).tobytes())
+        f.write(struct.pack("<ii", 2, 1))          # jpeg, zlib_ushort
+        f.write(struct.pack("<IIII", *color_size, *depth_size))
+        f.write(struct.pack("<fQ", 1000.0, len(poses)))
+        for i, (pose, color, depth) in enumerate(zip(poses, colors,
+                                                     depths_mm)):
+            packed = zlib.compress(np.asarray(depth, "<u2").tobytes(), 1)
+            f.write(np.asarray(pose, "<f4").reshape(4, 4).tobytes())
+            f.write(struct.pack("<QQQQ", 33333 * i, 33333 * i, len(color),
+                                len(packed)))
+            f.write(color)
+            f.write(packed)
+
+
+# the scan's labels: raw category -> (NYU40 id, NYU40 class)
+_SCAN_LABELS = {"wall": (1, "wall"), "floor": (2, "floor"),
+                "kitchen cabinet": (3, "cabinet"), "bed": (4, "bed"),
+                "chair": (5, "chair"), "table": (7, "table")}
+_NYU_RAW = {3: "kitchen cabinet", 4: "bed", 5: "chair", 7: "table"}
+
+
+def _grid_patch(origin, ax_u, ax_v, nu: int, nv: int):
+    """Vertices [(nu+1)(nv+1), 3] and triangles of a planar patch spanned by
+    ``ax_u`` and ``ax_v`` from ``origin``."""
+    a, b = np.meshgrid(np.linspace(0, 1, nu + 1), np.linspace(0, 1, nv + 1),
+                       indexing="ij")
+    verts = (np.asarray(origin)[None] + a.reshape(-1, 1) * ax_u[None]
+             + b.reshape(-1, 1) * ax_v[None])
+    idx = np.arange((nu + 1) * (nv + 1)).reshape(nu + 1, nv + 1)
+    q0, q1 = idx[:-1, :-1].ravel(), idx[1:, :-1].ravel()
+    q2, q3 = idx[1:, 1:].ravel(), idx[:-1, 1:].ravel()
+    faces = np.concatenate([np.stack([q0, q1, q2], 1),
+                            np.stack([q0, q2, q3], 1)])
+    return verts, faces
+
+
+def write_scan(scan_dir: str, scene: str, extent: Sequence[float],
+               boxes: np.ndarray, rng: np.random.RandomState,
+               axis_align: Optional[np.ndarray] = None) -> None:
+    """Write a ScanNet scan of ``room_tsdf``'s room into ``scan_dir``:
+    ``{scene}_vh_clean_2.ply`` (binary, xyz and rgb, a triangle grid of
+    0.1 m over the floor, the four walls up to the room's height and
+    each box's six faces, in the poses' world frame),
+    ``{scene}_vh_clean_2.0.010000.segs.json`` (one segment a face),
+    ``{scene}.aggregation.json`` (the floor, the walls and each box as an
+    object, labelled by ScanNet's raw categories) and ``{scene}.txt``
+    (``axisAlignment``, identity unless ``axis_align`` is given)."""
+    from cnrma_torch.utils.ply import write_ply_mesh
+    ex, ey, ez = (float(e) for e in extent)
+    hgt = min(ez, 3.0)
+    e = np.eye(3)
+    # (object label, [(origin, axis u, axis v)])
+    objects = [("floor", [((0.1, 0.1, 0.05), (ex - 0.2) * e[0],
+                           (ey - 0.2) * e[1])]),
+               ("wall", [((0.1, 0.1, 0.05), (ey - 0.2) * e[1],
+                          (hgt - 0.05) * e[2]),
+                         ((ex - 0.1, 0.1, 0.05), (ey - 0.2) * e[1],
+                          (hgt - 0.05) * e[2])]),
+               ("wall", [((0.1, 0.1, 0.05), (ex - 0.2) * e[0],
+                          (hgt - 0.05) * e[2]),
+                         ((0.1, ey - 0.1, 0.05), (ex - 0.2) * e[0],
+                          (hgt - 0.05) * e[2])])]
+    for cx, cy, cz, dx, dy, dz, cat in boxes[:, :7]:
+        lo = np.array([cx - dx / 2, cy - dy / 2, cz - dz / 2], np.float64)
+        size = np.array([dx, dy, dz], np.float64)
+        faces = []
+        for axis in range(3):
+            u, v = [a for a in range(3) if a != axis]
+            for side in (0.0, 1.0):
+                o = lo + side * size[axis] * e[axis]
+                faces.append((o, size[u] * e[u], size[v] * e[v]))
+        objects.append((_NYU_RAW[int(cat)], faces))
+    verts, tris, seg_ids, groups = [], [], [], []
+    seg = 0
+    for obj_id, (label, patches) in enumerate(objects):
+        segs = []
+        for o, au, av in patches:
+            nu = max(1, int(np.ceil(np.linalg.norm(au) / 0.1)))
+            nv = max(1, int(np.ceil(np.linalg.norm(av) / 0.1)))
+            pv, pf = _grid_patch(o, np.asarray(au), np.asarray(av), nu, nv)
+            tris.append(pf + sum(len(x) for x in verts))
+            verts.append(pv)
+            seg_ids.append(np.full(len(pv), seg))
+            segs.append(seg)
+            seg += 1
+        groups.append({"id": obj_id, "objectId": obj_id, "segments": segs,
+                       "label": label})
+    verts = np.concatenate(verts).astype(np.float32)
+    colors = rng.randint(0, 256, (len(verts), 3)).astype(np.uint8)
+    os.makedirs(scan_dir, exist_ok=True)
+    base = os.path.join(scan_dir, scene)
+    write_ply_mesh(base + "_vh_clean_2.ply", verts, np.concatenate(tris),
+                   vertex_colors=colors)
+    with open(base + "_vh_clean_2.0.010000.segs.json", "w") as f:
+        json.dump({"params": {"segMinVerts": 20}, "sceneId": scene,
+                   "segIndices": np.concatenate(seg_ids).tolist()}, f)
+    with open(base + ".aggregation.json", "w") as f:
+        json.dump({"sceneId": scene, "segGroups": groups,
+                   "segmentsFile": f"{scene}_vh_clean_2.0.010000.segs.json"},
+                  f)
+    align = np.eye(4) if axis_align is None else np.asarray(axis_align)
+    with open(base + ".txt", "w") as f:
+        f.write("axisAlignment = " + " ".join(f"{x:.6f}" for x in
+                                              align.ravel()) + "\n")
+
+
+def write_label_map(path: str) -> None:
+    """A ``scannetv2-labels.combined.tsv`` holding the scan's raw
+    categories."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        f.write("id\traw_category\tcategory\tcount\tnyu40id\tnyu40class\n")
+        for i, (raw, (nyu, cls)) in enumerate(_SCAN_LABELS.items()):
+            f.write(f"{i + 1}\t{raw}\t{raw}\t1\t{nyu}\t{cls}\n")
+
+
+def write_scannet_raw(root: str, n_scenes: int = 1, n_frames: int = 300,
+                      tsdf_dim: Tuple[int, int, int] = (208, 208, 80),
+                      voxel_size: float = 0.04,
+                      color_size: Tuple[int, int] = SCANNET_COLOR_SIZE,
+                      depth_size: Tuple[int, int] = SCANNET_DEPTH_SIZE,
+                      seed: int = 0,
+                      axis_align: Optional[np.ndarray] = None
+                      ) -> Dict[str, np.ndarray]:
+    """Write ScanNet's raw inputs to the data preparation for ``n_scenes``
+    synthetic scenes of ``room_tsdf``'s room (``tsdf_dim`` voxels at
+    ``voxel_size``, its four boxes), and return the two cameras'
+    intrinsics (``intrinsic_color``, ``intrinsic_depth``, [4, 4]):
+
+    * ``scans/{scene}/{scene}.sens``: ``n_frames`` frames on
+      ``write_scannet``'s ring of poses, colour ``color_size`` JPEG (a
+      smooth random pattern), depth ``depth_size`` in mm ray-cast from the
+      room through the depth camera's own intrinsic
+      (``render_room_depth``);
+    * the scan (``write_scan``): mesh, segments, aggregation, meta;
+    * ``meta_data/scannetv2-labels.combined.tsv`` and
+      ``meta_data/scannetv2_{train,val}.txt`` (every scene in both)."""
+    rng = np.random.RandomState(seed)
+    extent = np.asarray(tsdf_dim, np.float64) * voxel_size
+    poses = ring_poses(extent, n_frames)
+    boxes = room_boxes(extent)
+    k_color = scannet_intrinsic(*color_size)
+    k_depth = scannet_intrinsic(*depth_size)
+    depths = render_room_depth(poses, k_depth[:3, :3], depth_size, extent,
+                               boxes)
+    cw, ch = color_size
+    scenes = []
+    for s in range(n_scenes):
+        scene = f"scene{s:04d}_00"
+        scan_dir = os.path.join(root, "scans", scene)
+        os.makedirs(scan_dir, exist_ok=True)
+        colors = []
+        for _ in range(n_frames):
+            small = rng.randint(0, 255, (ch // 16, cw // 16, 3), np.uint8)
+            buf = io.BytesIO()
+            Image.fromarray(small).resize((cw, ch), Image.BILINEAR).save(
+                buf, format="JPEG", quality=90)
+            colors.append(buf.getvalue())
+        write_sens(os.path.join(scan_dir, scene + ".sens"), poses, colors,
+                   [depth_mm(d) for d in depths], k_color, k_depth,
+                   color_size, depth_size)
+        write_scan(scan_dir, scene, extent, boxes, rng, axis_align)
+        scenes.append(scene)
+    meta = os.path.join(root, "meta_data")
+    write_label_map(os.path.join(meta, "scannetv2-labels.combined.tsv"))
+    for split in ("train", "val"):
+        with open(os.path.join(meta, f"scannetv2_{split}.txt"), "w") as f:
+            f.write("\n".join(scenes) + "\n")
+    return {"intrinsic_color": k_color, "intrinsic_depth": k_depth}
+
+
 def write_scannet(root: str, n_scenes: int = 2, n_frames: int = 60,
                   tsdf_dim: Tuple[int, int, int] = (208, 208, 80),
                   voxel_size: float = 0.04, image_size=(1296, 968),
                   seed: int = 0, ann_name: str = "scannet_infos_val.pkl",
                   target: Optional[Sequence[float]] = None,
-                  radius: Optional[float] = None) -> str:
+                  radius: Optional[float] = None,
+                  depth_png: bool = False) -> str:
     """Write ``n_scenes`` synthetic scenes in ScanNet's on-disk layout, as
     ``data/scannet.py`` reads it, and return the infos file's path:
 
@@ -139,7 +453,9 @@ def write_scannet(root: str, n_scenes: int = 2, n_frames: int = 60,
       a smooth random pattern), ``{id:05d}.txt`` camera-to-world poses on a
       ring of ``radius`` (0.3 of the room's width) around ``target`` (the
       room's centre, a third of its height up), 0.3 ``radius`` above it and
-      looking at it, ``intrinsic.txt``;
+      looking at it, ``intrinsic.txt``; with ``depth_png``, also
+      ``{id:05d}.png``: the room's depth in mm at ``image_size``, ray-cast
+      through the same intrinsic (``render_room_depth``);
     * ``atlas_tsdf/{scene}/tsdf_{04,08,16}.npz``: a room (floor, walls, four
       boxes) over ``tsdf_dim`` voxels at ``voxel_size`` and the two coarser
       scales, origin 0;
@@ -149,13 +465,11 @@ def write_scannet(root: str, n_scenes: int = 2, n_frames: int = 60,
     rng = np.random.RandomState(seed)
     w, h = image_size
     extent = np.asarray(tsdf_dim, np.float64) * voxel_size
-    center = np.asarray(target if target is not None else
-                        (extent[0] / 2, extent[1] / 2,
-                         min(extent[2], 3.0) / 3), np.float64)
-    radius = radius or 0.3 * min(extent[0], extent[1])
-    intrinsic = np.array([[1170.0 * w / 1296, 0, w / 2, 0],
-                          [0, 1170.0 * h / 968, h / 2, 0],
-                          [0, 0, 1, 0], [0, 0, 0, 1]])
+    poses = ring_poses(extent, n_frames, target, radius)
+    intrinsic = scannet_intrinsic(w, h)
+    boxes = room_boxes(extent)
+    depths = (render_room_depth(poses, intrinsic[:3, :3], (w, h), extent,
+                                boxes) if depth_png else None)
     gt_dir = os.path.join(root, "scannet_instance_data")
     os.makedirs(gt_dir, exist_ok=True)
     infos: List[dict] = []
@@ -168,11 +482,10 @@ def write_scannet(root: str, n_scenes: int = 2, n_frames: int = 60,
             small = rng.randint(0, 255, (h // 16, w // 16, 3), np.uint8)
             Image.fromarray(small).resize((w, h), Image.BILINEAR).save(
                 os.path.join(posed, f"{i:05d}.jpg"), quality=90)
-            a = 2 * np.pi * i / n_frames
-            eye = center + radius * np.array([np.cos(a), np.sin(a), 0.3])
-            np.savetxt(os.path.join(posed, f"{i:05d}.txt"),
-                       _look_at(eye, center))
-        boxes = room_boxes(extent)
+            np.savetxt(os.path.join(posed, f"{i:05d}.txt"), poses[i])
+            if depths is not None:
+                Image.fromarray(depth_mm(depths[i])).save(
+                    os.path.join(posed, f"{i:05d}.png"))
         tsdf_dir = os.path.join(root, "atlas_tsdf", scene)
         os.makedirs(tsdf_dir, exist_ok=True)
         for k in (1, 2, 4):

@@ -20,14 +20,14 @@ def add_device_arg(parser: argparse.ArgumentParser) -> None:
 
 
 def device_of(name: str) -> torch.device:
-    """The device a probe runs on; a CUDA device must exist."""
+    """The device a tool runs on; a CUDA device must exist."""
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{name}: no CUDA device; the probes run their "
-                           "kernels on the card (pass --device cpu for the "
-                           "plain versions)")
+        raise RuntimeError(f"{name}: no CUDA device; the tool runs on the "
+                           "card (pass --device cpu for the plain torch "
+                           "path on the host)")
     if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"the probes run on cuda or cpu, not {name}")
+        raise ValueError(f"the tools run on cuda or cpu, not {name}")
     return dev
 
 

@@ -1,8 +1,8 @@
 """Optimizer and learning-rate schedule from reference-style config dicts.
 
 Port of ``cnrma_tpu/train/optim.py``: the optax chain
-``clip_by_global_norm -> multi_transform({train: adamw | adam, frozen:
-set_to_zero})`` written out in torch, with optax's arithmetic:
+``clip_by_global_norm -> multi_transform({train: adamw | adam | sgd,
+frozen: set_to_zero})`` written out in torch, with optax's arithmetic:
 
 * the clip scales every gradient by ``max_norm / ||g||`` (as
   ``(g / ||g||) * max_norm``) when the global norm over **all** gradients,
@@ -14,8 +14,11 @@ set_to_zero})`` written out in torch, with optax's arithmetic:
   plus the decoupled ``weight_decay * p``, times ``-lr(t - 1)``; Adam
   (``optax.adam``, the stage-1 Atlas config) is the same without the
   decay, whatever ``weight_decay`` the config gives;
+* SGD (``optax.sgd`` with ``momentum``, 0.9 by default, not Nesterov): a
+  trace ``t = g + momentum * t``, then ``-lr(t - 1) * t``; no decay;
 * the step schedule multiplies the base rate by ``gamma`` at every
-  boundary ``epoch * steps_per_epoch`` the step count has reached.
+  boundary ``epoch * steps_per_epoch`` the step count has reached; the
+  fixed schedule keeps the base rate.
 
 ``torch.optim.AdamW`` and ``clip_grad_norm_`` compute other functions
 (``max_norm / (||g|| + 1e-6)``, the decay folded before the moments'
@@ -32,12 +35,17 @@ from torch import nn
 # the JAX package's FROZEN_PREFIXES_FREEZE_AT_2 in the port's module names
 FROZEN_PREFIXES_FREEZE_AT_2 = ("tower2d.resnet.stem.", "tower2d.resnet.res2_")
 
+# each optimizer kind's per-parameter state, as its checkpoint names it
+_STATE = {"adam": ("mu", "nu"), "sgd": ("trace",)}
+
 
 def build_lr_schedule(lr_config: Mapping[str, Any], base_lr: float,
                       steps_per_epoch: int) -> Callable[[int], float]:
-    """mmcv-style ``lr_config`` (``policy='step'``) -> the rate at a step
-    count (epoch boundaries)."""
+    """mmcv-style ``lr_config`` (``policy='step'`` or ``'fixed'``) -> the
+    rate at a step count (epoch boundaries)."""
     policy = lr_config.get("policy", "step")
+    if policy == "fixed":
+        return lambda count: base_lr
     if policy != "step":
         raise ValueError(f"unsupported lr policy {policy!r}")
     gamma = lr_config.get("gamma", 0.1)
@@ -60,8 +68,10 @@ def frozen_names(model: nn.Module, prefixes: Sequence[str]) -> frozenset:
 
 
 class Optimizer:
-    """The optax chain of ``build_optimizer`` (AdamW, or Adam with
-    ``weight_decay=0``) over named parameters.
+    """The optax chain of ``build_optimizer`` over named parameters:
+    ``kind='adam'`` is AdamW (Adam with ``weight_decay=0``), its state the
+    moments ``mu`` and ``nu``; ``kind='sgd'`` is SGD with ``momentum``, its
+    state the ``trace``.
 
     ``step(grads)`` takes one gradient a parameter (a missing one counts as
     zero), clips, updates the parameters in place and returns the global
@@ -70,8 +80,12 @@ class Optimizer:
     def __init__(self, params: Mapping[str, nn.Parameter],
                  schedule: Callable[[int], float], weight_decay: float = 0.0,
                  max_norm: Optional[float] = None, frozen: Iterable[str] = (),
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 kind: str = "adam", momentum: float = 0.9):
+        if kind not in _STATE:
+            raise ValueError(f"unknown optimizer kind {kind!r}")
         self.params = dict(params)
+        self.kind, self.momentum = kind, momentum
         self.schedule = schedule
         self.weight_decay = weight_decay
         self.max_norm = max_norm
@@ -83,8 +97,9 @@ class Optimizer:
         self.b1, self.b2, self.eps = b1, b2, eps
         self.count = 0
         self.trained = [n for n in self.params if n not in self.frozen]
-        self.mu = {n: torch.zeros_like(self.params[n]) for n in self.trained}
-        self.nu = {n: torch.zeros_like(self.params[n]) for n in self.trained}
+        for name in _STATE[kind]:
+            setattr(self, name, {n: torch.zeros_like(self.params[n])
+                                 for n in self.trained})
 
     def lr(self) -> float:
         """The rate of the next step."""
@@ -102,6 +117,11 @@ class Optimizer:
                  for n, t in g.items()}
         lr = self.schedule(self.count)
         self.count += 1
+        if self.kind == "sgd":
+            for n in self.trained:
+                self.trace[n] = g[n] + self.momentum * self.trace[n]
+                self.params[n].add_(self.trace[n] * -lr)
+            return norm
         dev = norm.device
         bc1 = 1 - torch.tensor(self.b1, device=dev) ** self.count
         bc2 = 1 - torch.tensor(self.b2, device=dev) ** self.count
@@ -115,11 +135,16 @@ class Optimizer:
         return norm
 
     def state_dict(self) -> Dict[str, Any]:
-        return {"count": self.count, "mu": dict(self.mu),
-                "nu": dict(self.nu)}
+        return {"count": self.count,
+                **{name: dict(getattr(self, name))
+                   for name in _STATE[self.kind]}}
 
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
-        for name in ("mu", "nu"):
+        for name in _STATE[self.kind]:
+            if name not in state:
+                raise KeyError(f"optimizer {name}: not in the checkpoint's "
+                               f"state ({sorted(state)}); another optimizer "
+                               f"type wrote it")
             mine, theirs = getattr(self, name), state[name]
             if set(mine) != set(theirs):
                 raise KeyError(f"optimizer {name}: the checkpoint's "
@@ -134,13 +159,16 @@ def build_optimizer(optimizer_cfg: Mapping[str, Any], model: nn.Module,
                     grad_clip: Optional[float] = None,
                     frozen_prefixes: Sequence[str] = ()) -> Optimizer:
     """Reference config dict (``optimizer = dict(type='AdamW', lr=...,
-    weight_decay=...)`` or ``dict(type='Adam', lr=...)``) -> the optimizer
-    over ``model``'s parameters."""
+    weight_decay=...)``, ``dict(type='Adam', lr=...)`` or ``dict(type='SGD',
+    lr=..., momentum=...)``) -> the optimizer over ``model``'s
+    parameters."""
     kind = optimizer_cfg.get("type", "AdamW")
-    if kind not in ("AdamW", "Adam"):
+    if kind not in ("AdamW", "Adam", "SGD"):
         raise ValueError(f"unsupported optimizer {kind!r}")
     return Optimizer(dict(model.named_parameters()), schedule,
                      weight_decay=(optimizer_cfg.get("weight_decay", 0.0)
                                    if kind == "AdamW" else 0.0),
                      max_norm=grad_clip,
-                     frozen=frozen_names(model, frozen_prefixes))
+                     frozen=frozen_names(model, frozen_prefixes),
+                     kind="sgd" if kind == "SGD" else "adam",
+                     momentum=optimizer_cfg.get("momentum", 0.9))

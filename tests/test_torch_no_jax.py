@@ -2,8 +2,9 @@
 unavailable, as on a GPU machine that has none of them: a tiny forward,
 then the test CLI, ``nms_bbox`` and ``evaluate_bbox`` on one tiny synthetic
 scene, and one step of the train CLI on it, whose checkpoint the test CLI
-loads; the three-stage recipe on such a scene, one step a stage; and the
-ARKit yaw path on a tiny synthetic ARKitScenes scene."""
+loads; the three-stage recipe on such a scene, one step a stage; the
+ARKit yaw path on a tiny synthetic ARKitScenes scene; and ScanNet's data
+preparation from a tiny synthetic ``.sens`` and scan."""
 
 import os
 import subprocess
@@ -39,6 +40,14 @@ import cnrma_torch.convert, cnrma_torch.data.points_dataset
 import cnrma_torch.eval.mesh_eval, cnrma_torch.models.fcaf3d_only
 import cnrma_torch.tools.combine_models, cnrma_torch.tools.evaluate_mesh
 import cnrma_torch.tools.overflow_survey, cnrma_torch.tools.overfit_full
+import cnrma_torch.geometry.tsdf_fusion, cnrma_torch.tools.visualize_results
+import cnrma_torch.tools.data_prepare.extract_posed_images
+import cnrma_torch.tools.data_prepare.generate_tsdf
+import cnrma_torch.tools.data_prepare.batch_load_scannet_data
+import cnrma_torch.tools.data_prepare.arkit_boxes
+import cnrma_torch.tools.data_prepare.load_arkit_data
+import cnrma_torch.tools.data_prepare.aggregate_data
+import cnrma_torch.tools.data_prepare.process_reconstruction
 import chip_smoke
 from cnrma_torch.models.cn_rma import CNRMA
 from cnrma_torch.models.fcaf3d import DetectionCapacities
@@ -311,3 +320,67 @@ def test_arkit_path_runs_without_jax():
     proc = _run(_ARKIT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "ARKIT_OK" in proc.stdout
+
+
+_PREP = """
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "cnrma_tpu"):
+    sys.modules[name] = None          # any import of them raises
+sys.path.insert(0, REPO)
+import atexit, os, pickle, shutil, tempfile
+import numpy as np
+from cnrma_torch.synthetic import write_scannet_raw
+from cnrma_torch.tools.data_prepare import (
+    aggregate_data, batch_load_scannet_data, extract_posed_images,
+    generate_tsdf)
+root = tempfile.mkdtemp()
+atexit.register(shutil.rmtree, root, ignore_errors=True)
+write_scannet_raw(root, n_frames=3, tsdf_dim=(48, 48, 24), voxel_size=0.08,
+                  color_size=(128, 96), depth_size=(64, 48))
+data = os.path.join(root, "scannet")
+meta = os.path.join(root, "meta_data")
+scene = "scene0000_00"
+extract_posed_images.main(["--scans_path", os.path.join(root, "scans"),
+                           "--output_path", os.path.join(data,
+                                                         "posed_images")])
+generate_tsdf.main(["--data_path", data, "--save_path", data,
+                    "--voxel_size", "0.16", "--device", "cpu"])
+batch_load_scannet_data.main([
+    "--scans_path", os.path.join(root, "scans"), "--label_map",
+    os.path.join(meta, "scannetv2-labels.combined.tsv"), "--output_path",
+    os.path.join(data, "scannet_instance_data")])
+for split in ("train", "val"):
+    aggregate_data.main(["--dataset", "scannet", "--data_path", data,
+                         "--split", split, "--scene_list",
+                         os.path.join(meta, f"scannetv2_{split}.txt")])
+tsdf = os.path.join(data, "atlas_tsdf", scene)
+assert sorted(os.listdir(tsdf)) == ["info.json", "tsdf_16.npz",
+                                    "tsdf_32.npz", "tsdf_64.npz"]
+with np.load(os.path.join(tsdf, "tsdf_16.npz")) as z:
+    assert z["origin"].shape == (1, 3) and np.isfinite(z["tsdf"]).all()
+    assert (np.abs(z["tsdf"]) < 1).any()
+with open(os.path.join(data, "scannet_infos_val.pkl"), "rb") as f:
+    infos = pickle.load(f)
+assert [i["scene"] for i in infos] == [scene]
+assert infos[0]["total_image_ids"] == ["00000", "00001", "00002"]
+assert infos[0]["annos"]["gt_num"] == 4
+try:
+    generate_tsdf.main(["--data_path", data, "--save_path", data])
+    raise AssertionError("generate_tsdf ran without a card")
+except RuntimeError as e:
+    assert "no CUDA device" in str(e)
+loaded = [m for m in ("jax", "flax", "cnrma_tpu") if sys.modules.get(m)]
+assert not loaded, loaded
+print("PREP_OK")
+"""
+
+
+def test_scannet_preparation_runs_without_jax():
+    """ScanNet's data preparation at a tiny size on the CPU with JAX, flax
+    and the JAX package blocked: ``extract_posed_images`` from a synthetic
+    ``.sens``, ``generate_tsdf --device cpu`` (and its default ``cuda:0``
+    refusing without a card), ``batch_load_scannet_data`` and
+    ``aggregate_data`` for train and val."""
+    proc = _run(_PREP)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "PREP_OK" in proc.stdout
