@@ -2,12 +2,16 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain torch version at the full ScanNet and ARKit
 shapes, drives the CN-RMA test-mode forward (NeuS and depth marching), the
-test CLI, the train CLI with its mid-training evaluation, the three-stage
-training recipe, the ARKit yaw path and ScanNet's data preparation at
-full width, checks small inputs against the CPU reference path, and runs
-the whole-model learning check on synthetic rooms.
+test CLI (also over two processes), the train CLI with its mid-training
+evaluation, the three-stage training recipe, data-parallel training, the
+ARKit yaw path and ScanNet's data preparation at full width, checks small
+inputs against the CPU reference path, and runs the whole-model learning
+check on synthetic rooms.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --train-child TRAIN_CLI_ARGS   (the ddp phase's
+        child: the train CLI, then its launches, model hash and step
+        records to a file)
 
 Phases (each prints a few lines; any failure raises and exits non-zero):
   1. device: CUDA required; card name and power limit from nvidia-smi.
@@ -41,7 +45,7 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
   6. reference: a tiny scene in fp32 on the GPU (kernels) and on the CPU
      (plain versions), same parameters and draw; TSDFs, points and boxes
      must agree.
-  6b. test CLI: two synthetic ScanNet scenes written on disk (60 frames
+  6b. test CLI: four synthetic ScanNet scenes written on disk (60 frames
      of 1296x968 JPEG, a room TSDF over the 256x256x96 grid, the planted
      boxes as GT) through ``python -m cnrma_torch.tools.test`` with
      ``configs/ray_marching_scannet.py`` at its own test widths and
@@ -51,7 +55,14 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
      torch ``nms_bbox`` and ``evaluate_bbox`` on the results (mAP printed)
      and on planted dumps equal to the GT (mAP@0.25 and mAP@0.50 exactly
      1.0; shifted up by dz/2, mAP@0.50 exactly 0); one scene again with
-     ``CNRMA_CAPACITY_DEBUG=1``, its capacity lines printed.
+     ``CNRMA_CAPACITY_DEBUG=1``, its capacity lines printed; the test
+     reader alone over two such scenes at 1 and 4 worker threads in
+     turns (seconds a scene, each ``load_s`` and ``wait_s``; the samples
+     must hash alike); the test CLI over the four scenes with
+     ``--n-devices 2`` (two processes on the one card) against the
+     one-process run: TSDFs and points within 1e-5, raw box rows matched
+     as sets, where only two near-tied rows may swap at a cut (the
+     voxelisation's atomics, F6), seconds a scene.
   6c. volume backward: K1b against its plain version at the training shape
      (40 views of [120, 160, 32], a 192x192x80 grid), bf16 and fp32,
      within 1e-5 of the largest gradient (its fp32 atomics sum in an order
@@ -101,7 +112,21 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
      scene, on synthetic dumps of 600,000 points on each room's surface and
      again on the 2.1 dumps that are not empty; ``combine_models`` of the
      two checkpoints, every tensor bit for bit; one stage-3 step from the
-     merged file with finite losses.
+     merged file with finite losses.  The stage-1 reader alone over the
+     two rooms at 1 and 4 workers, as phase 6b's.
+  ddp. on phase 6f's scenes and dumps: the train CLI for 2 steps of
+     stage 2 (500,000 points) and of stage 3 (40 views, 192x192x80,
+     fp32) in this process, then as a child under ``torchrun
+     --nproc_per_node 1`` on NCCL (``chip_smoke.py --train-child``): the
+     step-1 losses equal (bit for bit, or within 1e-5: the voxelisation's
+     atomics), each step's time and its all-reduce's, K1, K1b and K2 once
+     a step in the child; stage 2 on two ranks (gloo sharing the one
+     card; NCCL across two where there are two): the ranks' parameters
+     equal bit for bit after each step, and after step 1 those of a
+     one-process step on the mean of both scenes' gradients and
+     statistics within stated tolerances, the detector's positive count
+     and centerness sum as the group averaged them against the mean of
+     the two scenes' own; on several cards also stage 3 on a rank a card.
   arkit. the ARKitScenes 7-DoF path on two synthetic ARKit scenes (60 PNG
      frames of 256x192 in ARKit's ``lowres_wide`` layout, five yaw boxes a
      room) under ``build/``: the yaw model's tiny fp32 forward GPU against
@@ -168,6 +193,7 @@ kernel table as JSON; the last line is the device record.
 
 import collections
 import contextlib
+import gc
 import io
 import json
 import math
@@ -243,6 +269,13 @@ def bound(nbytes: float, ops: float, ops_type: str = "fp32") -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def no_tf32() -> None:
+    """fp32 means fp32: no TF32 in convolutions or matmuls (the main path
+    itself runs in bf16); every process of the script sets it."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -250,10 +283,7 @@ def phase_device() -> str:
                          "on a GPU")
     name = torch.cuda.get_device_name(0)
     smi = card()
-    # fp32 means fp32: no TF32 in convolutions or matmuls (the main path
-    # itself runs in bf16)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    no_tf32()
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{name}; count {torch.cuda.device_count()}")
     log(f"[device] cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
@@ -895,6 +925,7 @@ def gpu_against_cpu(dev, model, batch, uniform, tag: str) -> None:
 
 CLI_CONFIG = "configs/ray_marching_scannet.py"
 CLI_FILES = ("{s}.npz", "{s}.ply", "{s}_bbox_raw.npz")
+CLI_SCENES = 4              # phase 6b's scenes, also over two processes
 
 
 def _check_scene_files(save: str, middle: str, scene: str, dim,
@@ -990,7 +1021,7 @@ def phase_test_cli(dev) -> None:
     ScanNet scenes at the config's own test widths, then the torch NMS and
     mAP; planted dumps whose answer is known; one scene with the capacity
     report on."""
-    from cnrma_torch.core.builder import build_model
+    from cnrma_torch.core.builder import build_dataset, build_model
     from cnrma_torch.core.config import Config
     from cnrma_torch.ops.backproject import VOLUME_ACCUM
     from cnrma_torch.ops.ray_marching import RAY_MARCH
@@ -1001,14 +1032,14 @@ def phase_test_cli(dev) -> None:
     try:
         t0 = time.perf_counter()
         data = os.path.join(root, "data")
-        ann = write_scannet(data, n_scenes=2, n_frames=60)
+        ann = write_scannet(data, n_scenes=CLI_SCENES, n_frames=60)
         cfg = Config.fromfile(CLI_CONFIG)
         dim = tuple(cfg.model.voxel_dim_test)
         torch.manual_seed(0)
         ckpt = os.path.join(root, "init.pt")
         torch.save(build_model(cfg).state_dict(), ckpt)
-        log(f"[cli] wrote 2 scenes (60 frames of 1296x968 JPEG, room TSDF "
-            f"over {dim}) and a default-initialised checkpoint in "
+        log(f"[cli] wrote {CLI_SCENES} scenes (60 frames of 1296x968 JPEG, "
+            f"room TSDF over {dim}) and a default-initialised checkpoint in "
             f"{time.perf_counter() - t0:.1f} s")
         save, middle = os.path.join(root, "res"), os.path.join(root, "mid")
         argv = [CLI_CONFIG, ckpt, "--save-path", save, "--middle-save-path",
@@ -1019,19 +1050,24 @@ def phase_test_cli(dev) -> None:
         VOLUME_ACCUM.launches = 0
         RAY_MARCH.launches = 0
         t0 = time.perf_counter()
-        records = test_cli.main(argv + ["--max-scenes", "2"])
+        records = test_cli.main(argv + ["--max-scenes", str(CLI_SCENES)])
         wall = time.perf_counter() - t0
         launches = {"volume_accum": VOLUME_ACCUM.launches,
                     "ray_march": RAY_MARCH.launches}
         peak = torch.cuda.max_memory_allocated()
-        log(f"[cli] {len(records)} scenes in {wall:.2f} s; launches "
-            f"{launches}; peak memory {peak / 2 ** 30:.2f} GiB")
-        if launches != {"volume_accum": 2, "ray_march": 2}:
-            raise AssertionError(f"two scenes must launch each main-path "
-                                 f"kernel twice: {launches}")
+        first = records[0]["wait_s"]
+        n = len(records)
+        log(f"[cli] {n} scenes in {wall:.2f} s, {wall / n:.3f} s a scene, "
+            f"{(wall - first) / n:.3f} after the first wait (4 reader "
+            f"workers); launches {launches}; peak memory "
+            f"{peak / 2 ** 30:.2f} GiB ({card()})")
+        if launches != {"volume_accum": CLI_SCENES, "ray_march": CLI_SCENES}:
+            raise AssertionError(f"each scene must launch each main-path "
+                                 f"kernel once: {launches}")
         scenes = sorted(os.listdir(save))
-        if scenes != ["scene0000_00", "scene0001_00"] or len(records) != 2:
-            raise AssertionError(f"--max-scenes 2 wrote {scenes}")
+        if scenes != [f"scene{i:04d}_00" for i in range(CLI_SCENES)] \
+                or len(records) != CLI_SCENES:
+            raise AssertionError(f"--max-scenes {CLI_SCENES} wrote {scenes}")
         for r in records:
             r.update(_check_scene_files(save, middle, r["scene"], dim))
             log(f"[cli] {r['scene']}: load {r['load_s']:.3f} s (waited "
@@ -1065,6 +1101,19 @@ def phase_test_cli(dev) -> None:
             raise AssertionError(f"capacity report: {sorted(want - names)} "
                                  f"missing")
         _mesh_at_full_width(dev, root, data, dim)
+        test_opts = {"data.test.data_root": data, "data.test.ann_file": ann}
+        with open(ann, "rb") as f:
+            infos = pickle.load(f)
+        two = os.path.join(data, "scannet_infos_two.pkl")
+        with open(two, "wb") as f:          # the reader over two scenes
+            pickle.dump(infos[:2], f)
+        cfg.merge_from_options({"data.test.data_root": data,
+                                "data.test.ann_file": two})
+        _reader_turns("cli readers", lambda: build_dataset(cfg, "test",
+                                                           seed=0))
+        _cli_sharded(root, [CLI_CONFIG, ckpt, "--cfg-options",
+                            *(f"{k}={v}" for k, v in test_opts.items())],
+                     scenes)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1704,7 +1753,7 @@ def phase_train_cli(dev) -> dict:
                 + ", ".join(f"{k} {v:.4f}" for k, v in r["log_vars"].items())
                 + f"; step {r['step_s']:.3f} s, read {r['load_s']:.3f} s, "
                 f"waited {r['wait_s']:.3f} s, peak memory "
-                f"{r['peak_gib']:.2f} GiB; stages (CUDA events, ms) "
+                f"{r['peak_gib'] or 0:.2f} GiB; stages (CUDA events, ms) "
                 + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
                     r["stages_ms"].items(), key=lambda kv: -kv[1]))
                 + f", sum {sum(r['stages_ms'].values()):.1f}")
@@ -1822,7 +1871,7 @@ def _run_train_cli(argv, counters, steps: int, tag: str):
             + ", ".join(f"{k} {v:.4f}" for k, v in r["log_vars"].items())
             + f"; step {r['step_s']:.3f} s, read {r['load_s']:.3f} s, "
             f"waited {r['wait_s']:.3f} s, peak memory "
-            f"{r['peak_gib']:.2f} GiB; stages (CUDA events, ms) "
+            f"{r['peak_gib'] or 0:.2f} GiB; stages (CUDA events, ms) "
             + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
                 r["stages_ms"].items(), key=lambda kv: -kv[1]))
             + f", sum {sum(r['stages_ms'].values()):.1f}")
@@ -1961,6 +2010,7 @@ def phase_three_stages(dev) -> list:
     on synthetic dumps and on the 2.1 dumps that are not empty); the merge,
     bit for bit; one stage-3 step from the merged file.  Returns K1b's
     device-time calls at stage 1's shape for phase 8."""
+    from cnrma_torch.core.builder import build_dataset
     from cnrma_torch.core.config import Config
     from cnrma_torch.ops.backproject import VOLUME_ACCUM, VOLUME_ACCUM_BWD
     from cnrma_torch.ops.ray_marching import RAY_MARCH
@@ -2009,6 +2059,13 @@ def phase_three_stages(dev) -> list:
                                  f"{launches}")
         _check_val("stage 1", records, seen, cfg1.model.voxel_dim_test, 2,
                    "loss", os.path.join(root, "s1"))
+
+        # the stage-1 reader alone at 1 and 4 workers over the two rooms
+        cfg_r = Config.fromfile(STAGE1_CONFIG)
+        cfg_r.merge_from_options({"data.train.data_root": data,
+                                  "data.train.ann_file": ann})
+        _reader_turns("stage 1 readers",
+                      lambda: build_dataset(cfg_r, "train", seed=0))
 
         # 2. K1b at stage 1's shape
         calls = _stage1_volume_bwd(dev, Config.fromfile(STAGE1_CONFIG), data,
@@ -2125,9 +2182,588 @@ def phase_three_stages(dev) -> list:
             raise AssertionError(f"the stage-3 step must launch K1, K1b and "
                                  f"K2 once: {launches}")
         log(f"[stages] phase took {time.perf_counter() - t_phase:.1f} s")
+        phase_ddp(dev, root, data, ann, syn)
         return calls
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# --- readers with workers, scene-sharded testing, data-parallel training -----
+
+READER_WORKERS = (1, 4)     # the reader runs at each count, in turns
+CLI_FILE_TOL = 1e-5         # the test CLI's TSDF and points against a run
+CLI_BOX_TOL = 1e-4          # a raw box row's match, of the largest value
+DDP_LOSS_TOL = 1e-5         # step-1 losses, relative (voxelize's atomics)
+# The two-rank step against the one-process mean step: atomics in the
+# forward and backward (F6) move the gradients, most where a leaf's is
+# small.  Each limit is about 3x the largest of five sound runs on an H100
+# (gradients 4.8e-5-8.1e-4, the worst leaf 2.2e-4-1.3e-3, statistics
+# 2.3e-7-4.7e-6, parameters 1.8e-4-4.5e-4); the counts are exact.
+DDP_GRAD_TOL = 2.5e-3       # all gradients, |g - g_ref| / |g_ref|
+DDP_LEAF_TOL = 1e-2         # the worst leaf, of its own norm
+DDP_STATS_TOL = 1.5e-5      # running statistics, of their largest magnitude
+DDP_PARAM_SHARE = 1.5e-3    # params moved apart by more than lr / 100
+DDP_COUNTS_TOL = 1e-6       # the group's [n_pos, denorm], relative
+
+
+def _sample_hash(batch) -> str:
+    """A hash of a loader batch's arrays and names (not its timings)."""
+    import hashlib
+    h = hashlib.sha256()
+    for key in sorted(batch):
+        value = batch[key]
+        if key in ("load_s", "wait_s"):
+            continue
+        if key == "tsdf_list":
+            for k in sorted(value):
+                h.update(k.encode() + np.ascontiguousarray(value[k]).tobytes())
+        elif isinstance(value, np.ndarray):
+            h.update(key.encode() + str(value.dtype).encode()
+                     + np.ascontiguousarray(value).tobytes())
+        else:
+            h.update(f"{key}={value!r}".encode())
+    return h.hexdigest()
+
+
+def _reader_turns(tag: str, make) -> dict:
+    """The reader alone (``SceneLoader`` over ``make()``, no consumer) at
+    each of ``READER_WORKERS`` in turns: seconds a scene, each scene's
+    ``load_s`` and ``wait_s``; the samples must hash alike at every
+    count.  Returns the seconds a scene by worker count."""
+    from cnrma_torch.data.loader import SceneLoader
+    want, out = None, {}
+    for workers in READER_WORKERS:
+        loader = SceneLoader(make(), shuffle=False, num_workers=workers)
+        t0 = time.perf_counter()
+        got, loads, waits = [], [], []
+        for batch in loader:
+            got.append(_sample_hash(batch))
+            loads.append(batch["load_s"])
+            waits.append(batch["wait_s"])
+        wall = time.perf_counter() - t0
+        out[workers] = wall / len(got)
+        log(f"[{tag}] {workers} worker(s): {len(got)} scenes in {wall:.2f} "
+            f"s, {out[workers]:.3f} s a scene; load_s "
+            + " ".join(f"{v:.3f}" for v in loads) + "; wait_s "
+            + " ".join(f"{v:.3f}" for v in waits) + f" ({card()})")
+        if want is None:
+            want = got
+        elif got != want:
+            raise AssertionError(f"[{tag}] {workers} workers read other "
+                                 f"samples than {READER_WORKERS[0]}")
+    log(f"[{tag}] the samples hash alike at {READER_WORKERS} workers; "
+        f"{out[READER_WORKERS[0]] / out[READER_WORKERS[-1]]:.2f}x the "
+        f"scenes a second at {READER_WORKERS[-1]}")
+    return out
+
+
+def _matched(a: np.ndarray, b: np.ndarray, tol: float) -> np.ndarray:
+    """Which of ``a``'s rows some row of ``b`` equals within ``tol`` (of
+    the largest magnitude) in every column."""
+    if not len(b):
+        return np.zeros(len(a), bool)
+    scale = max(1.0, float(np.abs(a).max()))
+    return (np.abs(a[:, None, :] - b[None, :, :]).max(-1)
+            <= tol * scale).any(1)
+
+
+def _files_against(ref: str, got: str, scenes) -> dict:
+    """Two test CLI runs' files of ``scenes`` (``ref``/``got`` each holding
+    ``res`` and ``mid``): the TSDFs and the kept points within
+    ``CLI_FILE_TOL``; the raw boxes as row sets, since the detector's
+    voxelisation averages duplicate points with ``index_add_``'s atomics,
+    whose order moves its scores' last bits and so can swap two rows of
+    near-equal score across a level's top-k cut (F6): as many rows, each
+    matched within ``CLI_BOX_TOL`` (box and scores together), but for
+    rows that pair off across the two files with top scores within
+    ``CLI_BOX_TOL``.  Raises past these; returns the differences."""
+    errs = {"tsdf": 0.0, "points": 0.0, "box_rows_unmatched": 0}
+
+    def load(root, scene, f):
+        with np.load(os.path.join(root, "res", scene, f.format(s=scene))) \
+                as z:
+            return {k: z[k] for k in z.files}
+    for s in scenes:
+        a, b = load(ref, s, "{s}.npz"), load(got, s, "{s}.npz")
+        errs["tsdf"] = max(errs["tsdf"], float(np.abs(a["tsdf"]
+                                                      - b["tsdf"]).max()))
+        pa, pb = (np.load(os.path.join(r, "mid", s + "_vert.npy"))
+                  for r in (ref, got))
+        if pa.shape != pb.shape:
+            raise AssertionError(f"{s}: {pb.shape} points against "
+                                 f"{pa.shape}")
+        if len(pa):
+            errs["points"] = max(errs["points"], float(
+                np.abs(pa - pb).max() / max(1.0, np.abs(pa).max())))
+        a, b = load(ref, s, "{s}_bbox_raw.npz"), load(got, s,
+                                                      "{s}_bbox_raw.npz")
+        if a["bboxes"].shape != b["bboxes"].shape:
+            raise AssertionError(f"{s}: {b['bboxes'].shape} raw boxes "
+                                 f"against {a['bboxes'].shape}")
+        rows = [np.nan_to_num(np.concatenate([x["bboxes"], x["scores"]], 1),
+                              posinf=1e30, neginf=-1e30) for x in (a, b)]
+        k = a["scores"].shape[1]
+        top = [np.sort(r[~_matched(r, o, CLI_BOX_TOL), -k:].max(1))
+               for r, o in (rows, rows[::-1])]
+        errs["box_rows_unmatched"] = max(errs["box_rows_unmatched"],
+                                         len(top[0]))
+        if len(top[0]) != len(top[1]) or not np.allclose(
+                *top, rtol=0, atol=CLI_BOX_TOL):
+            raise AssertionError(f"{s}: raw box rows differ, not as ties "
+                                 f"swapped at a cut: top scores {top}")
+    if errs["tsdf"] > CLI_FILE_TOL or errs["points"] > CLI_FILE_TOL:
+        raise AssertionError(f"the files differ: {errs}")
+    return errs
+
+
+def _cli_sharded(root: str, base, scenes) -> None:
+    """The test CLI over ``scenes`` on two processes sharing the card
+    (``--n-devices 2``, the config's 4 reader workers each), against the
+    one-process run whose files are under ``root`` (``res``, ``mid``);
+    its seconds a scene."""
+    from cnrma_torch.tools import test as test_cli
+    out = os.path.join(root, "n_devices_2")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recs = test_cli.main(base[:2] + [
+        "--n-devices", "2", "--save-path",
+        os.path.join(out, "res"), "--middle-save-path",
+        os.path.join(out, "mid")] + base[2:])
+    wall = time.perf_counter() - t0
+    if sorted(os.listdir(os.path.join(out, "res"))) != scenes \
+            or [r["index"] for r in recs] != list(range(len(scenes))):
+        raise AssertionError("[cli sharded] --n-devices 2 wrote other "
+                             "scenes")
+    log(f"[cli sharded] --n-devices 2: {len(recs)} scenes in {wall:.2f} s "
+        f"with the processes' start, {wall / len(recs):.3f} s a scene; per "
+        f"scene (rank, load, waited, forward, write s): "
+        + "; ".join(f"{r['rank']} {r['load_s']:.3f} {r['wait_s']:.3f} "
+                    f"{r['forward_s']:.3f} {r['write_s']:.3f}"
+                    for r in recs) + f" ({card()})")
+    errs = _files_against(root, out, scenes)
+    log(f"[cli sharded] --n-devices 2 against one process: {errs} "
+        f"(TSDF and points tolerance {CLI_FILE_TOL}; box rows matched "
+        f"within {CLI_BOX_TOL}, but for ties swapped at a cut)")
+
+
+def _train_child(argv) -> int:
+    """``chip_smoke.py --train-child ARGV``: ``python -m
+    cnrma_torch.tools.train ARGV`` in this process (under ``torchrun``, a
+    rank), then writes ``{work dir}/child_rank{RANK}.json``: the launches
+    of K1, K1b and K2 it made, a hash of its trained model and the CLI's
+    per-step records."""
+    from cnrma_torch.ops.backproject import VOLUME_ACCUM, VOLUME_ACCUM_BWD
+    from cnrma_torch.ops.ray_marching import RAY_MARCH
+    from cnrma_torch.tools import train as train_cli
+    no_tf32()
+    states, run = [], train_cli.run_training
+
+    def keep(state, *args, **kw):
+        states.append(state)
+        return run(state, *args, **kw)
+    train_cli.run_training = keep
+    records, _ = train_cli.main(argv)
+    rank = os.environ.get("RANK", "0")
+    with open(os.path.join(train_cli.parse_args(argv).work_dir,
+                           f"child_rank{rank}.json"), "w") as f:
+        json.dump({"launches": _counts({
+            "volume_accum": VOLUME_ACCUM,
+            "volume_accum_bwd": VOLUME_ACCUM_BWD, "ray_march": RAY_MARCH}),
+            "digest": _digest(states[0].model), "records": records}, f)
+    return 0
+
+
+def _child_reports(work_dir: str) -> list:
+    """The reports ``_train_child`` wrote in ``work_dir``, in rank order."""
+    names = sorted((f for f in os.listdir(work_dir)
+                    if f.startswith("child_rank")),
+                   key=lambda f: int(f[len("child_rank"):-len(".json")]))
+    out = []
+    for name in names:
+        with open(os.path.join(work_dir, name)) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _world_one(root: str, tag: str, argv, counters, want: dict) -> None:
+    """The train CLI for 2 steps in this process without a group, then as
+    a child under ``torchrun`` at world size 1 on NCCL: step 1's losses
+    within ``DDP_LOSS_TOL`` (bit for bit printed), step 2's difference printed
+    (F6), each step's time and the all-reduce's; the child must launch
+    ``want``."""
+    alone = os.path.join(root, tag + "_alone")
+    recs, _, launches, _ = _run_train_cli(
+        argv + ["--work-dir", alone], counters, 2, f"ddp {tag} alone")
+    if launches != want:
+        raise AssertionError(f"[ddp {tag}] launches {launches}, not {want}")
+    group = os.path.join(root, tag + "_group")
+    gc.collect()
+    torch.cuda.empty_cache()            # the child needs the card's memory
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", os.path.abspath(__file__),
+           "--train-child"] + argv + ["--work-dir", group]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[ddp {tag}] the torchrun child failed "
+                             f"({proc.returncode}):\n{proc.stdout[-4000:]}"
+                             f"\n{proc.stderr[-4000:]}")
+    child, got = (_child_reports(group)[0][k] for k in ("launches",
+                                                        "records"))
+    log(f"[ddp {tag}] torchrun --nproc_per_node 1 (NCCL, world size 1): "
+        f"{len(got)} steps, the child's wall {wall:.1f} s; launches {child}")
+    if child != want or len(got) != 2:
+        raise AssertionError(f"[ddp {tag}] the child must take 2 steps and "
+                             f"launch {want}: {child}")
+    for a, b in zip(recs, got):
+        rel = {k: abs(b["log_vars"][k] - v) / max(abs(v), 1e-30)
+               for k, v in a["log_vars"].items()}
+        log(f"[ddp {tag}] step {a['step']}: {a['step_s']:.3f} s alone, "
+            f"{b['step_s']:.3f} s in the group (all-reduce "
+            f"{b['stages_ms'].get('all_reduce', float('nan')):.1f} ms, "
+            f"peak {b['peak_gib'] or 0:.2f} GiB); largest relative loss "
+            f"difference {max(rel.values()):.3g} ({card()})")
+    losses = {k: v for k, v in recs[0]["log_vars"].items() if "loss" in k}
+    same = {k: got[0]["log_vars"][k] for k in losses} == losses
+    worst = max(abs(got[0]["log_vars"][k] - v) / max(abs(v), 1e-30)
+                for k, v in losses.items())
+    log(f"[ddp {tag}] step 1's losses in the group against alone: bit for "
+        f"bit {same}, largest relative difference {worst:.3g} (tolerance "
+        f"{DDP_LOSS_TOL}: the detector's voxelisation sums duplicate "
+        f"points with index_add_'s atomics)")
+    if worst > DDP_LOSS_TOL:
+        raise AssertionError(f"[ddp {tag}] step 1's losses in the group "
+                             f"differ from those alone")
+    if not all(np.isfinite(v) for r in got for v in r["log_vars"].values()):
+        raise AssertionError(f"[ddp {tag}] a log var is not finite")
+
+
+def _world_n(root: str, tag: str, argv, n: int, want: dict) -> None:
+    """The train CLI for 2 steps as ``torchrun --nproc_per_node n`` on
+    NCCL, one card a rank: every rank ends with the same parameters and
+    statistics (a hash of each), each launches ``want``; rank 0's step
+    and all-reduce times."""
+    wd = os.path.join(root, f"{tag}_world{n}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(n), os.path.abspath(__file__),
+           "--train-child"] + argv + ["--work-dir", wd]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[ddp {tag}] torchrun of {n} failed "
+                             f"({proc.returncode}):\n{proc.stdout[-4000:]}"
+                             f"\n{proc.stderr[-4000:]}")
+    reports = _child_reports(wd)
+    digests = [r["digest"] for r in reports]
+    launches = [r["launches"] for r in reports]
+    recs = reports[0]["records"]
+    log(f"[ddp {tag}] torchrun --nproc_per_node {n} (NCCL, a card a rank): "
+        f"{len(recs)} steps in the child's wall {wall:.1f} s; launches "
+        f"{launches}; ranks' hashes equal {len(set(digests)) == 1}"
+        f" ({len(digests)} ranks)")
+    for r in recs:
+        log(f"[ddp {tag}] world {n} step {r['step']}: {r['step_s']:.3f} s, "
+            f"all-reduce {r['stages_ms'].get('all_reduce', float('nan')):.1f}"
+            f" ms, waited {r['wait_s']:.3f} s, peak {r['peak_gib'] or 0:.2f} "
+            f"GiB; total loss {r['log_vars']['total_loss']:.4f} ({card()})")
+    if len(digests) != n or len(set(digests)) != 1 \
+            or len(recs) != 2 or any(c != want for c in launches) \
+            or len(launches) != n:
+        raise AssertionError(f"[ddp {tag}] {n} ranks must take 2 steps, "
+                             f"launch {want} each and end equal")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _digest(model) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode() + v.detach().cpu().contiguous().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def _stage2_trainer(cfg, dev):
+    """The train CLI's stage-2 model (seed 0) and optimizer on ``dev``."""
+    from cnrma_torch.core.builder import build_model
+    from cnrma_torch.train.optim import (
+        FROZEN_PREFIXES_FREEZE_AT_2, build_lr_schedule, build_optimizer)
+    torch.manual_seed(0)
+    model = build_model(cfg, mode="train").to(dev)
+    opt = build_optimizer(
+        cfg.optimizer, model, build_lr_schedule(
+            cfg.get("lr_config", {}), cfg.optimizer["lr"], 1),
+        grad_clip=cfg.optimizer_config.grad_clip.max_norm,
+        frozen_prefixes=FROZEN_PREFIXES_FREEZE_AT_2)
+    return model, opt
+
+
+def _ddp_rank(rank: int, port: int, out: str, opts,
+              device_type: str = "cuda", cards: int = 1) -> None:
+    """Rank ``rank`` of two, under gloo on one card (``cards`` 1; NCCL
+    refuses two ranks on one device) or NCCL on a card each: two data-parallel
+    stage-2 steps, one scene a rank; rank 0 also takes the one-process
+    step on the mean of both scenes' gradients and statistics and holds
+    it against its own after step 1, and holds the detector's positive
+    count and centerness sum that the group averaged against the mean of
+    the scenes' own.  Writes ``{out}/rank{rank}.json``."""
+    import types
+    from cnrma_torch.core.builder import build_dataset
+    from cnrma_torch.core.config import Config
+    from cnrma_torch.data.loader import SceneLoader
+    from cnrma_torch.models import fcaf3d
+    from cnrma_torch.parallel import dist
+    from cnrma_torch.train import loop
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE="2",
+                      LOCAL_RANK=str(rank if cards > 1 else 0))
+    no_tf32()
+    group, dev = dist.init_from_env(
+        device_type, backend="nccl" if cards > 1 else "gloo")
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda d: None)
+    cfg = Config.fromfile(STAGE2_CONFIG)
+    cfg.merge_from_options(dict(kv.split("=", 1) for kv in opts))
+    model, opt = _stage2_trainer(cfg, dev)
+    bucket = sum(p.numel() for p in model.parameters()) + sum(
+        b.numel() for b in loop.running_stats(model))
+
+    def loader(r):
+        return SceneLoader(build_dataset(cfg, "train", seed=0), seed=0,
+                           num_workers=4, rank=r, world_size=2)
+    seen, real = [], fcaf3d.dist
+
+    def recording(t, g):
+        seen.append(real.all_mean(t, g).clone())
+        return t
+    fcaf3d.dist = types.SimpleNamespace(all_mean=recording)
+    report = {"bucket": bucket, "digests": [], "step_s": []}
+    mine, batches = loader(rank), []
+    while len(batches) < 2:                 # two steps, epochs as they come
+        batches += list(mine)[:2 - len(batches)]
+    for step, batch in enumerate(batches):
+        on_device = loop.device_batch(batch, dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        logs = loop.train_step(model, opt, on_device,
+                               loop.step_generator(0, step, dev, rank),
+                               group=group)
+        sync(dev)
+        report["step_s"].append(time.perf_counter() - t0)
+        report.setdefault("log_vars", []).append(
+            {k: float(v) for k, v in logs.items()})
+        report["digests"].append(_digest(model))
+        if rank == 0 and step == 0:
+            other = next(iter(loader(1)))
+            report["reference"] = _mean_reference(
+                cfg, dev, model, [on_device, loop.device_batch(other, dev)],
+                seen[-1].cpu())
+    fcaf3d.dist = real
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.shutdown(group)
+
+
+def _mean_reference(cfg, dev, model, batches, group_mean) -> dict:
+    """One step of a fresh stage-2 model (the ranks' start) on the mean
+    of ``batches``' gradients and running statistics.  Each scene's
+    detector loss is normalised by the mean of the two scenes' own
+    positive counts and centerness sums, taken from a forward of each
+    without a gradient, not from the group; ``group_mean`` (what the
+    group's collective gave) is held against that mean.  Returns the
+    largest differences from ``model`` after the ranks' step 1."""
+    import types
+    from cnrma_torch.models import fcaf3d
+    from cnrma_torch.train import loop
+    ref, ref_opt = _stage2_trainer(cfg, dev)
+    params = dict(ref.named_parameters())
+    start = [b.clone() for b in loop.running_stats(ref)]
+    ours, own = fcaf3d.dist, []
+
+    def forward(r, batch):
+        for b, s in zip(loop.running_stats(ref), start):
+            b.copy_(s)
+        ref.train()
+        return ref.forward_train(
+            batch, generator=loop.step_generator(0, 0, dev, r),
+            group="reference")
+    try:
+        fcaf3d.dist = types.SimpleNamespace(
+            all_mean=lambda t, g: own.append(t.clone()) or t)
+        with torch.no_grad():
+            for r, batch in enumerate(batches):
+                forward(r, batch)
+        mean = (own[0] + own[1]) / 2
+        fcaf3d.dist = types.SimpleNamespace(
+            all_mean=lambda t, g: mean.clone())
+        grads, stats = [], []
+        for r, batch in enumerate(batches):
+            losses = forward(r, batch)
+            ref.zero_grad(set_to_none=True)
+            loop.total_loss(losses).backward()
+            grads.append({n: p.grad if p.grad is not None
+                          else torch.zeros_like(p) for n, p in
+                          params.items()})
+            stats.append([b.clone() for b in loop.running_stats(ref)])
+    finally:
+        fcaf3d.dist = ours
+    counts = mean.cpu()
+    counts_err = float(((group_mean - counts).abs()
+                        / counts.abs().clamp_min(1e-30)).max())
+    mean_grads = {n: (grads[0][n] + grads[1][n]) / 2 for n in params}
+    with torch.no_grad():
+        for b, s0, s1 in zip(loop.running_stats(ref), *stats):
+            b.copy_((s0 + s1) / 2)
+    lr = ref_opt.lr()
+    ref_opt.step(mean_grads)
+    mine = dict(model.named_parameters())
+    leaf_err = {n: float((mine[n].grad - g).norm() / g.norm())
+                for n, g in mean_grads.items() if float(g.norm()) > 0}
+    worst = max(leaf_err, key=leaf_err.get)
+    total = float(torch.sqrt(sum(((mine[n].grad - g) ** 2).sum()
+                                 for n, g in mean_grads.items()))
+                  / torch.sqrt(sum((g ** 2).sum()
+                                   for g in mean_grads.values())))
+    stats_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+        1e-30)) for a, b in zip(loop.running_stats(model),
+                                loop.running_stats(ref)))
+    n = sum(p.numel() for p in params.values())
+    off = sum(int(((mine[k].detach() - p.detach()).abs() > lr / 100).sum())
+              for k, p in params.items())
+    moved = max(float((mine[k].detach() - p.detach()).abs().max())
+                for k, p in params.items())
+    return {"grads": total, "grads_leaf": leaf_err[worst],
+            "grads_leaf_name": worst, "stats": stats_err,
+            "param_share": off / n, "param_max_over_lr": moved / lr,
+            "counts": counts.tolist(), "group_counts": group_mean.tolist(),
+            "counts_err": counts_err}
+
+
+def _two_ranks(root: str, opts, device_type: str = "cuda") -> None:
+    """Stage 2 at full width on two ranks (``_ddp_rank``): gloo sharing
+    the one card, or NCCL across two where the machine has two or more;
+    after each step the ranks' parameters and
+    statistics are equal bit for bit, and after step 1 they are the
+    one-process mean step's within ``DDP_GRAD_TOL``, ``DDP_STATS_TOL``
+    and ``DDP_PARAM_SHARE``, the group's positive count and centerness
+    sum the scenes' own mean's within ``DDP_COUNTS_TOL``."""
+    cards = min(2, torch.cuda.device_count()) if device_type == "cuda" \
+        else 1
+    how = ("NCCL, a card each" if cards > 1 else "gloo, sharing one card"
+           if device_type == "cuda" else "gloo on the CPU")
+    out = os.path.join(root, "two_ranks")
+    os.makedirs(out)
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        _ddp_rank, args=(_free_port(), out, opts, device_type, cards),
+        nprocs=2, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + 600
+    try:
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                raise AssertionError("[ddp two ranks] still running after "
+                                     "600 s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    ref = ranks[0]["reference"]
+    log(f"[ddp two ranks] stage 2, 500,000 points a scene, {how} "
+        f"({time.perf_counter() - t0:.1f} s with the "
+        f"processes' start): bucket {ranks[0]['bucket']} fp32 values "
+        f"({ranks[0]['bucket'] * 4 / 1e9:.3f} GB); step seconds rank 0 "
+        + " ".join(f"{s:.3f}" for s in ranks[0]["step_s"]) + ", rank 1 "
+        + " ".join(f"{s:.3f}" for s in ranks[1]["step_s"])
+        + "; total loss a step "
+        + str([r["total_loss"] for r in ranks[0]["log_vars"]])
+        + f" ({card()})")
+    log(f"[ddp two ranks] ranks equal bit for bit after each step: "
+        f"{ranks[0]['digests'] == ranks[1]['digests']}; against the "
+        f"one-process mean step: gradients {ref['grads']:.3g} of their "
+        f"norm (tol {DDP_GRAD_TOL}), the worst leaf {ref['grads_leaf']:.3g} "
+        f"of its own ({ref['grads_leaf_name']}, tol {DDP_LEAF_TOL}), "
+        f"statistics {ref['stats']:.3g} (tol "
+        f"{DDP_STATS_TOL}), parameters off by more than lr/100 "
+        f"{ref['param_share']:.3g} of them (tol {DDP_PARAM_SHARE}), "
+        f"largest {ref['param_max_over_lr']:.3g} lr; [n_pos, denorm] of "
+        f"the group {ref['group_counts']}, the scenes' own mean "
+        f"{ref['counts']} ({ref['counts_err']:.3g} apart, tol "
+        f"{DDP_COUNTS_TOL})")
+    if ranks[0]["digests"] != ranks[1]["digests"] \
+            or len(ranks[0]["digests"]) != 2:
+        raise AssertionError("[ddp two ranks] the ranks' parameters "
+                             "differ")
+    if not (ref["grads"] <= DDP_GRAD_TOL
+            and ref["grads_leaf"] <= DDP_LEAF_TOL
+            and ref["stats"] <= DDP_STATS_TOL
+            and ref["param_share"] <= DDP_PARAM_SHARE
+            and ref["counts_err"] <= DDP_COUNTS_TOL):
+        raise AssertionError(f"[ddp two ranks] the ranks' step is not the "
+                             f"one-process mean step: {ref}")
+
+
+def phase_ddp(dev, root: str, data: str, ann: str, syn: str) -> None:
+    """The data-parallel path on the card, on phase 6f's scenes and
+    synthetic dumps: the train CLI at world size 1
+    under ``torchrun`` on NCCL (stage 2 at 500,000 points, stage 3 at 40
+    views and 192x192x80) against the same run without a group; on a
+    machine with several cards, stage 3 on a rank a card; stage 2 on two
+    ranks (gloo sharing one card, or NCCL on two) against the one-process
+    mean step."""
+    from cnrma_torch.ops.backproject import VOLUME_ACCUM, VOLUME_ACCUM_BWD
+    from cnrma_torch.ops.ray_marching import RAY_MARCH
+    t0 = time.perf_counter()
+    counters = {"volume_accum": VOLUME_ACCUM,
+                "volume_accum_bwd": VOLUME_ACCUM_BWD, "ray_march": RAY_MARCH}
+    ddp = os.path.join(root, "ddp")
+    os.makedirs(ddp)
+    s2 = [f"data.train.data_root={data}", f"data.train.ann_file={ann}",
+          f"data.train.points_dir={syn}", "evaluation=None",
+          "log_config.interval=1"]
+    _world_one(ddp, "stage 2", [STAGE2_CONFIG, "--max-steps", "2",
+                                "--cfg-options", *s2], counters,
+               {"volume_accum": 0, "volume_accum_bwd": 0, "ray_march": 0})
+    _world_one(ddp, "stage 3", [CLI_CONFIG, "--max-steps", "2",
+                                "--cfg-options",
+                                f"data.train.data_root={data}",
+                                f"data.train.ann_file={ann}",
+                                "evaluation=None", "log_config.interval=1"],
+               counters, {"volume_accum": 2, "volume_accum_bwd": 2,
+                          "ray_march": 2})
+    cards = torch.cuda.device_count()
+    if cards > 1:            # the rooms once a rank: a step an epoch
+        with open(ann, "rb") as f:
+            infos = pickle.load(f)
+        ranks = os.path.join(data, "scannet_infos_ranks.pkl")
+        with open(ranks, "wb") as f:
+            pickle.dump([infos[i % len(infos)] for i in range(cards)], f)
+        _world_n(ddp, "stage 3", [CLI_CONFIG, "--max-steps", "2",
+                                  "--cfg-options",
+                                  f"data.train.data_root={data}",
+                                  f"data.train.ann_file={ranks}",
+                                  "evaluation=None", "log_config.interval=1"],
+                 cards, {"volume_accum": 2, "volume_accum_bwd": 2,
+                         "ray_march": 2})
+    gc.collect()
+    torch.cuda.empty_cache()
+    _two_ranks(ddp, s2)
+    log(f"[ddp] phase took {time.perf_counter() - t0:.1f} s ({card()})")
 
 
 ARKIT_CONFIG = "configs/ray_marching_arkit.py"
@@ -3007,4 +3643,6 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-child"]:
+        sys.exit(_train_child(sys.argv[2:]))
     sys.exit(main())

@@ -6,8 +6,9 @@ writes (``python -m cnrma_torch.tools.test configs/scannet_middle.py CKPT
 --middle-save-path DIR``: xyz and the 32 weighted features of the kept
 points) with the scene's GT boxes, and emits fixed-shape samples: the
 points subsampled without replacement to ``num_points`` (a draw of the
-dataset's ``np.random.RandomState``, as the JAX reader's) or padded with
-``point_valid`` False, the boxes padded to ``max_gt_boxes``.  The
+dataset's ``np.random.RandomState``, as the JAX reader's, made by
+``draw`` apart from the reading in ``load``) or padded with ``point_valid``
+False, the boxes padded to ``max_gt_boxes``.  The
 augmentation (flips, rotation, scale, translation) runs in the model.
 """
 
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import os
 import pickle
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -56,18 +57,36 @@ class MiddlePointsDataset:
     def __len__(self) -> int:
         return len(self.data_infos) * self.repeat
 
+    def _path(self, index: int) -> str:
+        info = self.data_infos[index % len(self.data_infos)]
+        return os.path.join(self.points_dir, info["scene"] + "_vert.npy")
+
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        return self.load(index, self.draw(index))
+
+    def draw(self, index: int) -> Dict[str, Any]:
+        """Scene ``index``'s draw from ``self.rng``: the ``num_points``
+        rows kept of a dump that holds more (none otherwise).  The row
+        count comes from the ``.npy`` header; the points are not read."""
+        n = np.load(self._path(index), mmap_mode="r").shape[0]
+        p = self.num_points
+        return {"sel": self.rng.choice(n, p, replace=False) if n > p
+                else None}
+
+    def load(self, index: int, draws: Dict[str, Any]
+             ) -> Dict[str, np.ndarray]:
+        """Scene ``index``'s sample at the draw of ``draw(index)``."""
         info = self.data_infos[index % len(self.data_infos)]
         scene = info["scene"]
-        pts = np.load(os.path.join(self.points_dir, scene + "_vert.npy"))
+        pts = np.load(self._path(index))
         pts = pts[:, :self.load_dim].astype(np.float32)
 
         p = self.num_points
         out_pts = np.zeros((p, pts.shape[1]), np.float32)
         valid = np.zeros((p,), bool)
         n = len(pts)
-        if n > p:
-            sel = self.rng.choice(n, p, replace=False)
+        sel = draws["sel"]
+        if sel is not None:
             out_pts[:] = pts[sel]
             valid[:] = True
         else:

@@ -12,14 +12,17 @@ per-frame extrinsic ``.txt`` + shared ``intrinsic.txt`` (axis-aligned via
 Emits fixed-shape numpy dicts (views padded to ``num_frames``, boxes padded
 to ``max_gt_boxes``), packed as the JAX package packs them.  The samples
 draw from one ``np.random.RandomState(seed)`` as the JAX reader's do, so a
-seed gives the same sample in both.
+seed gives the same sample in both.  ``draw(i)`` makes a scene's draws and
+``load(i, draws)`` reads it; ``dataset[i]`` is the two in turn.  A loader
+makes every scene's draws in order on one thread and loads in several
+(``data/loader.py``), so the samples do not depend on the thread count.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 from PIL import Image
@@ -28,6 +31,9 @@ from cnrma_torch.core.registry import DATASETS
 from cnrma_torch.data import transforms as T
 from cnrma_torch.geometry.boxes import DepthBoxes
 from cnrma_torch.geometry.tsdf import TSDF
+
+# the ``recon_pipeline`` keys that decide what ``draw`` draws
+RECON_DRAW_KEYS = ("random_rotation", "random_translation")
 
 
 def load_tsdf_scales(path: str, scene: str, voxel_size: float
@@ -127,11 +133,31 @@ class AtlasScanNetDataset:
 
     # -- sample assembly ---------------------------------------------------
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        return self.load(index, self.draw(index))
+
+    def draw(self, index: int) -> Dict[str, Any]:
+        """Scene ``index``'s random draws from ``self.rng``, in the order
+        the JAX reader makes them: the frames (``select_frames``), then in
+        ``recon_random`` mode the rotation and the crop's translation.
+        How many numbers it draws depends on the scene's info only."""
+        info = self.data_infos[index]
+        draws = {"image_ids": T.select_frames(
+            list(info["total_image_ids"]), self.num_frames,
+            self.select_type, self.rng)}
+        if self.space_mode == "recon_random":
+            draws["recon"] = T.draw_recon_random(self.rng, **{
+                k: v for k, v in self.recon_pipeline.items()
+                if k in RECON_DRAW_KEYS})
+        return draws
+
+    def load(self, index: int, draws: Dict[str, Any]
+             ) -> Dict[str, np.ndarray]:
+        """Scene ``index``'s sample at the draws of ``draw(index)``: the
+        frames' decode and resize, the TSDF resample, the packing.  It
+        draws nothing, so several threads may load at once."""
         info = self.data_infos[index]
         scene = info["scene"]
-        image_ids = T.select_frames(list(info["total_image_ids"]),
-                                    self.num_frames, self.select_type,
-                                    self.rng)
+        image_ids = draws["image_ids"]
         imgs, intrinsics, extrinsics = self.load_frames(info, image_ids)
         tsdf_dict = load_tsdf_scales(
             os.path.join(self.data_root, "atlas_tsdf"), scene,
@@ -150,8 +176,9 @@ class AtlasScanNetDataset:
         # untouched (the Atlas model has no detection branch)
         if self.space_mode == "recon_random":
             extrinsics, tsdf_dict, offset = T.space_transform_recon_random(
-                self.rng, extrinsics, tsdf_dict, self.voxel_dim,
-                **self.recon_pipeline)
+                draws["recon"], extrinsics, tsdf_dict, self.voxel_dim,
+                **{k: v for k, v in self.recon_pipeline.items()
+                   if k not in RECON_DRAW_KEYS})
         elif self.space_mode == "recon_test":
             extrinsics, tsdf_dict, offset = T.space_transform_recon_test(
                 extrinsics, tsdf_dict, self.voxel_dim)

@@ -112,15 +112,24 @@ def space_transform_detection(extrinsics, tsdf_dict, gt_boxes: DepthBoxes,
     return new_ext, new_tsdf, gt_boxes, offset
 
 
-def space_transform_recon_random(rng: np.random.RandomState, extrinsics,
-                                 tsdf_dict, voxel_dim, origin=(0, 0, 0),
-                                 random_rotation=True,
-                                 random_translation=True,
+def draw_recon_random(rng: np.random.RandomState, random_rotation=True,
+                      random_translation=True) -> dict:
+    """The draws of ``space_transform_recon_random``, in its order: the
+    rotation angle (``rng.rand()``), then the crop's translation weights
+    (``rng.rand(3)``); a transform that is off draws nothing."""
+    rotation = rng.rand() * 2 * np.pi if random_rotation else 0.0
+    translation = rng.rand(3) if random_translation else 0.5
+    return {"rotation": rotation, "translation": translation}
+
+
+def space_transform_recon_random(draws: dict, extrinsics, tsdf_dict,
+                                 voxel_dim, origin=(0, 0, 0),
                                  padding_xy=1.5, padding_z=0.25):
     """Random z-rotation + crop for recon pretraining
-    (``AtlasRandomTransformSpaceRecon``, ``atlas_transforms.py:132-205``)."""
+    (``AtlasRandomTransformSpaceRecon``, ``atlas_transforms.py:132-205``),
+    at the angle and translation weights of ``draw_recon_random``."""
     tsdf = tsdf_dict["tsdf_gt_004"]
-    r = rng.rand() * 2 * np.pi if random_rotation else 0.0
+    r = draws["rotation"]
     R = np.array([[np.cos(r), -np.sin(r)], [np.sin(r), np.cos(r)]],
                  np.float32)
     span = np.array(tsdf.tsdf_vol.shape) * tsdf.voxel_size
@@ -138,7 +147,7 @@ def space_transform_recon_random(rng: np.random.RandomState, extrinsics,
     end = (np.array([xmax, ymax, zmax])
            + np.array([padding_xy, padding_xy, 0.0])
            - np.asarray(voxel_dim) * tsdf.voxel_size)
-    t = rng.rand(3) if random_translation else 0.5
+    t = draws["translation"]
     t = t * start + (1 - t) * end
 
     T = np.eye(4, dtype=np.float32)

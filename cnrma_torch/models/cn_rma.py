@@ -421,7 +421,7 @@ class CNRMA(nn.Module):
                       generator: Optional[torch.Generator] = None,
                       uniform: Optional[torch.Tensor] = None,
                       aug_draws: Optional[Sequence[Dict[str, torch.Tensor]]]
-                      = None) -> Dict[str, torch.Tensor]:
+                      = None, group=None) -> Dict[str, torch.Tensor]:
         """The training forward (``CNRMA.__call__`` with ``train=True``):
         the loss dict ``tsdf_loss_<key>`` (times ``loss_weight_recon``),
         ``loss_centerness``, ``loss_bbox`` and ``loss_cls`` (times
@@ -431,7 +431,9 @@ class CNRMA(nn.Module):
         ``gt_boxes`` [B, M, 7], ``gt_labels`` and ``gt_valid`` [B, M].
         The draws come from ``generator`` (first the subsample's, then per
         scene the augmentation's) unless ``uniform`` and ``aug_draws``
-        (one ``draw_feature_transform`` dict a scene) give them."""
+        (one ``draw_feature_transform`` dict a scene) give them.  With a
+        process ``group`` (JAX's ``pmean_axis``) the detector's positive
+        count and centerness sum are its ranks' mean."""
         feats, view_valid, tsdf = self.reconstruct_views(batch)
         losses = self.recon_losses(tsdf, batch)
         fine = tsdf[f"scene_tsdf_{self.tsdf_head.keys[-1]}"]
@@ -449,7 +451,7 @@ class CNRMA(nn.Module):
         level_outs = self.detector(xyz, pts.feats, pts.valid)
         mark("detector")
         det = self.detector.loss(level_outs, gt_boxes, batch["gt_labels"],
-                                 batch["gt_valid"])
+                                 batch["gt_valid"], group=group)
         mark("det_loss")
         losses.update({k: v * self.loss_weight_detection
                        for k, v in det.items()})
@@ -477,7 +479,8 @@ class Atlas(CNRMA):
     def forward_train(self, batch: Dict[str, Any],
                       generator: Optional[torch.Generator] = None,
                       uniform: Optional[torch.Tensor] = None,
-                      aug_draws=None) -> Dict[str, torch.Tensor]:
+                      aug_draws=None, group=None) -> Dict[str, torch.Tensor]:
         """The training forward's losses: ``tsdf_loss_<key>`` (times
-        ``loss_weight_recon``) only; no ray march, no detector."""
+        ``loss_weight_recon``) only; no ray march, no detector, so the
+        ``group`` syncs nothing."""
         return self.recon_losses(self.reconstruct_views(batch)[2], batch)

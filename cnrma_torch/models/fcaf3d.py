@@ -25,6 +25,7 @@ from cnrma_torch.models.assigner import fcaf3d_assign
 from cnrma_torch.models.layers import MaskedBatchNorm, MaskedInstanceNorm
 from cnrma_torch.ops import sparse as sp
 from cnrma_torch.ops.losses import bce_loss, iou3d_loss, sigmoid_focal_loss
+from cnrma_torch.parallel import dist
 
 
 class DetectionCapacities(NamedTuple):
@@ -304,17 +305,18 @@ class FCAF3DDetector(nn.Module):
                 for level in zip(*scenes)]
 
     def loss(self, level_outs: List[LevelOut], gt_boxes: torch.Tensor,
-             gt_labels: torch.Tensor, gt_valid: torch.Tensor
+             gt_labels: torch.Tensor, gt_valid: torch.Tensor, group=None
              ) -> Dict[str, torch.Tensor]:
         """``loss_centerness``, ``loss_bbox``, ``loss_cls`` (reference
         ``FCAF3DHead._loss``, JAX ``FCAF3DDetector.loss``): every level's
         rows concatenated, assigned per scene; focal and centerness losses
         over the positive count and the IoU loss over the summed
-        centerness targets, each averaged over the scenes and clamped at 1
-        and 1e-6; the IoU of axis-aligned boxes, or with ``with_yaw`` of
-        the 7-DoF boxes (all seven columns of the decoded boxes and the
-        targets).  gt_boxes [B, M, 7] gravity-center z, gt_labels and
-        gt_valid [B, M]."""
+        centerness targets, each averaged over the scenes and, with a
+        process ``group`` (JAX's ``axis_name``), over its ranks, and only
+        then clamped at 1 and 1e-6; the IoU of axis-aligned boxes, or
+        with ``with_yaw`` of the 7-DoF boxes (all seven columns of the
+        decoded boxes and the targets).  gt_boxes [B, M, 7]
+        gravity-center z, gt_labels and gt_valid [B, M]."""
         def cat(xs):
             return torch.cat(xs, dim=1)
         centerness = cat([o.centerness for o in level_outs])
@@ -336,9 +338,13 @@ class FCAF3DDetector(nn.Module):
         box_t = torch.stack([a.bbox_targets for a in assign])
 
         pos = (labels >= 0) & valid
-        n_pos = torch.clamp(pos.float().sum(dim=1).mean(), min=1.0)
-        denorm = torch.clamp(torch.where(pos, ctr_t, 0.0).sum(dim=1).mean(),
-                             min=1e-6)
+        n_pos = pos.float().sum(dim=1).mean()
+        denorm = torch.where(pos, ctr_t, 0.0).sum(dim=1).mean()
+        if group is not None:
+            n_pos, denorm = dist.all_mean(
+                torch.stack([n_pos, denorm]).detach(), group)
+        n_pos = torch.clamp(n_pos, min=1.0)
+        denorm = torch.clamp(denorm, min=1e-6)
         b = centerness.shape[0]
         loss_cls = sigmoid_focal_loss(
             cls_scores.reshape(-1, self.n_classes), labels.reshape(-1),

@@ -68,11 +68,12 @@ class FCAF3DOnly(nn.Module):
     def forward_train(self, batch: Dict[str, Any],
                       generator: Optional[torch.Generator] = None,
                       aug_draws: Optional[Sequence[Dict[str, torch.Tensor]]]
-                      = None) -> Dict[str, torch.Tensor]:
+                      = None, group=None) -> Dict[str, torch.Tensor]:
         """The training forward's losses ``loss_centerness``, ``loss_bbox``
         and ``loss_cls``; the augmentation's draws come from ``generator``
         unless ``aug_draws`` (one ``draw_feature_transform`` dict a scene)
-        gives them."""
+        gives them.  With a process ``group`` the positive count and
+        centerness sum are its ranks' mean."""
         points, gt_boxes = batch["points"], batch["gt_boxes"]
         if self.use_feature_transform:
             points, gt_boxes = augment_scenes(points, gt_boxes,
@@ -84,6 +85,6 @@ class FCAF3DOnly(nn.Module):
                                    batch["point_valid"])
         mark("detector")
         losses = self.detector.loss(level_outs, gt_boxes, batch["gt_labels"],
-                                    batch["gt_valid"])
+                                    batch["gt_valid"], group=group)
         mark("det_loss")
         return losses

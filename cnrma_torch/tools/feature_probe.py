@@ -100,12 +100,16 @@ def empty_cuda(dev: torch.device) -> None:
     _build.launch("cnrma_probe_empty", EMPTY, dev)
 
 
-def dyn_slice_plain(start, x, rows: int):
-    """Rows ``[s, s + rows)`` of ``x``, ``s = start[0]`` clamped into the
+def dyn_slice_rows(start, x, rows: int):
+    """The row numbers ``[s, s + rows)``, ``s = start[0]`` clamped into the
     table like ``lax.dynamic_slice``."""
     s = start.reshape(-1)[:1].clamp(0, x.shape[0] - rows)
-    return x.index_select(0, s + torch.arange(rows, device=x.device,
-                                              dtype=s.dtype))
+    return s + torch.arange(rows, device=x.device, dtype=s.dtype)
+
+
+def dyn_slice_plain(start, x, rows: int):
+    """Rows ``[s, s + rows)`` of ``x`` (``dyn_slice_rows``)."""
+    return x.index_select(0, dyn_slice_rows(start, x, rows))
 
 
 def dyn_slice_cuda(start, x, rows: int):
@@ -284,12 +288,26 @@ def _work(name: str, args, out_bytes: int):
 
 
 # the one PyTorch call that computes a probe's function, where there is one
+# (on the arguments of ``_library_args``)
 _LIBRARY = {
     "basic": lambda x: torch.add(x, 1.0),
     "dot": lambda a, b: torch.mm(a, b, out_dtype=torch.float32),
+    "dyn_slice": lambda x, rows: x.index_select(0, rows),
     "alias": lambda acc, x: acc.add_(x),
+    "onehot": lambda idx, tab: tab.index_select(0, idx),
     "dma": lambda x, row0, rows: torch.mul(x[row0:row0 + rows], 2.0),
 }
+
+
+def _library_args(name: str, args):
+    """The library call's arguments: ``dyn_slice``'s row numbers made
+    beforehand, so that one ``index_select`` of 8 rows is the call;
+    ``onehot``'s indices are all inside the table, so ``index_select`` on
+    the bf16 table gives its rows (in bf16, exactly the fp32 values)."""
+    if name == "dyn_slice":
+        start, x, rows = args
+        return x, dyn_slice_rows(start, x, rows)
+    return args
 
 
 def bench_cases(dev: torch.device) -> List[KernelCase]:
@@ -312,7 +330,8 @@ def bench_cases(dev: torch.device) -> List[KernelCase]:
             kernel=lambda f=cuda_fn, a=args_k: f(*a),
             plain=lambda f=plain_fn, a=args_p: f(*a),
             library=(None if library is None
-                     else lambda f=library, a=args_l: f(*a)),
+                     else lambda f=library, a=_library_args(name, args_l):
+                     f(*a)),
             bytes=int(nbytes), ops=ops, ops_type=ops_type))
     return cases
 

@@ -3,6 +3,7 @@
     python -m cnrma_torch.tools.test CONFIG [CHECKPOINT] [--save-path DIR]
         [--middle-save-path DIR] [--middle-visualize-path DIR]
         [--max-scenes N] [--seed S] [--cfg-options k=v ...] [--device cpu]
+        [--n-devices N]
 
 Port of ``tools/test.py`` (the reference ``test.py`` +
 ``RayMarching.forward_test``).  Per scene it writes, with the JAX tool's
@@ -31,12 +32,19 @@ from a stage-1 checkpoint): its detector tensors keep their ``--seed``
 synthesis and the CLI prints their count; any other missing or unexpected
 key fails the load.
 
-The forward runs on ``cuda:0`` unless ``--device cpu``.  A reader thread
-decodes the next scene while the device runs this one (one scene ahead at
-most), and a writer thread meshes and writes the files.  The subsample's generator is seeded by
-the scene's global index, so a scene gives the same files alone or inside a
-run of many; ``--max-scenes N`` writes exactly N scenes.  Any failure stops
-the run with an error: no scene is skipped.
+The forward runs on ``cuda:0`` unless ``--device cpu``.  W reader
+threads (``data.workers_per_gpu`` x 2, the JAX train CLI's count; one
+where that is 0) decode and resample the next W scenes while the device
+runs this one (``data/loader.py``: the frame draws stay in scene order
+on one thread, so the files do not depend on W), and one writer thread
+meshes and writes the files.  ``--n-devices N`` shares the scenes out over N
+processes, rank r on ``cuda:r`` (on ``cuda:r % cards`` where there are
+fewer cards; N CPU processes with ``--device cpu``): rank r reads and
+writes positions ``r, r + N, ...`` with its own readers and writer, and
+needs no collective.  The subsample's generator is seeded by the scene's
+global index, so a scene gives the same files alone, inside a run of
+many, or on any rank; ``--max-scenes M`` writes exactly M scenes in all.
+Any failure stops the run with an error: no scene is skipped.
 """
 
 from __future__ import annotations
@@ -49,11 +57,13 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.multiprocessing as mp
 
 from cnrma_torch.bridge import from_flax, read_flax_npz
 from cnrma_torch.convert import read_pth, reference_state_dict
 from cnrma_torch.core.builder import build_dataset, build_model
 from cnrma_torch.core.config import Config
+from cnrma_torch.data.loader import SceneLoader
 from cnrma_torch.geometry.tsdf import TSDF
 from cnrma_torch.models.fcaf3d_only import FCAF3DOnly
 from cnrma_torch.synthetic import synthesize_parameters
@@ -79,12 +89,15 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--cfg-options", nargs="+", default=[])
     p.add_argument("--device", default="cuda:0",
                    help="cuda:0 (default) or cpu")
+    p.add_argument("--n-devices", type=int, default=1,
+                   help="share the scenes out over N processes, one a "
+                        "card (N CPU processes with --device cpu)")
     return p.parse_args(argv)
 
 
 class _Head:
-    """The first ``n`` scenes of a dataset; each sample records the seconds
-    its reading took."""
+    """The first ``n`` scenes of a dataset; its other attributes
+    (``draw``, ``load``) are the dataset's."""
 
     def __init__(self, dataset, n: Optional[int]):
         self.dataset = dataset
@@ -94,10 +107,18 @@ class _Head:
         return self.n
 
     def __getitem__(self, i: int) -> Dict[str, Any]:
-        t0 = time.perf_counter()
-        sample = self.dataset[i]
-        sample["load_s"] = time.perf_counter() - t0
-        return sample
+        return self.dataset[i]
+
+    def __getattr__(self, name: str) -> Any:
+        if name == "dataset":
+            raise AttributeError(name)
+        return getattr(self.dataset, name)
+
+
+def reader_workers(cfg) -> int:
+    """The readers' worker threads: ``data.workers_per_gpu`` x 2, as the
+    JAX train CLI sets them."""
+    return int(cfg.get("data", {}).get("workers_per_gpu", 2)) * 2
 
 
 def read_parameters(checkpoint: str) -> Dict[str, torch.Tensor]:
@@ -173,7 +194,7 @@ def write_scene(scene: str, out: Dict[str, Any], voxel_size: float,
             "boxes": boxes}
 
 
-def _host_outputs(model, out: Dict[str, Any], sample: Dict[str, Any],
+def _host_outputs(model, out: Dict[str, Any], offset: np.ndarray,
                   middle: bool) -> Dict[str, Any]:
     """Scene 0 of the forward's outputs, copied to the host (the TSDF;
     with a detector the boxes and, with a middle path, the points)."""
@@ -188,18 +209,55 @@ def _host_outputs(model, out: Dict[str, Any], sample: Dict[str, Any],
                     point_valid=pts.valid[0])
     host = {k: v.float().cpu().numpy() if v.is_floating_point()
             else v.cpu().numpy() for k, v in host.items()}
-    host["offset"] = np.asarray(sample["offset"], np.float32)
+    host["offset"] = np.asarray(offset, np.float32)
     return host
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, Any]]:
-    """Run the CLI; returns one record per scene (its name, the seconds of
-    reading, forward and writing, the mesh's faces, the PLY's bytes)."""
+    """Run the CLI; returns one record per scene in scene order (its name
+    and index, the seconds of reading, waiting, forward and writing, the
+    mesh's faces, the PLY's bytes), every rank's with ``--n-devices``."""
     args = parse_args(argv)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device here "
                          "(pass --device cpu to run on the CPU)")
+    n = max(1, args.n_devices)
+    if n == 1:
+        return run_rank(args, 0, 1, dev)
+    results = mp.get_context("spawn").SimpleQueue()
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    procs = mp.start_processes(
+        _rank_main, args=(args, n, results, tf32), nprocs=n, join=False,
+        start_method="spawn")
+    records: List[Dict[str, Any]] = []
+    done = False
+    while not done:
+        done = procs.join(timeout=1)      # raises where a rank failed
+        while not results.empty():
+            records.extend(results.get())
+    return sorted(records, key=lambda r: r["index"])
+
+
+def _rank_main(rank: int, args, world: int, results, tf32) -> None:
+    """Rank ``rank`` of ``--n-devices``: its device, its scenes, with the
+    caller's TF32 settings (cuDNN's, cuBLAS's), so that its files are the
+    ones the caller's process would write."""
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = tf32
+    if args.device == "cpu":
+        dev = torch.device("cpu")
+    else:
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    results.put(run_rank(args, rank, world, dev))
+
+
+def run_rank(args, rank: int, world: int, dev: torch.device
+             ) -> List[Dict[str, Any]]:
+    """Rank ``rank`` of ``world``'s scenes through the forward and the
+    writer; its records."""
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_options(dict(kv.split("=", 1)
@@ -220,36 +278,31 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, Any]]:
                          "(CNRMA, Atlas); FCAF3DOnly trains on dumped points")
     kept = load_parameters(model, args.checkpoint, args.seed,
                            keep_missing=("detector.",))
-    if kept:
+    if kept and rank == 0:
         print(f"{args.checkpoint} holds no detector: its {kept} tensors keep "
               f"their synthesis from --seed {args.seed}", flush=True)
     model.to(dev)
 
-    # one reader thread, one scene ahead: the frame draws of the seeded
-    # RandomState come in scene order, and at most two samples are alive
-    reader = ThreadPoolExecutor(max_workers=1)
+    loader = SceneLoader(dataset, shuffle=False,
+                         num_workers=reader_workers(cfg),
+                         rank=rank, world_size=world, drop_last=False)
     writer = ThreadPoolExecutor(max_workers=1)
     pending, records = [], []
     try:
-        ahead = reader.submit(dataset.__getitem__, 0) if len(dataset) else None
-        for index in range(len(dataset)):
-            t_wait = time.perf_counter()
-            sample = ahead.result()
-            wait_s = time.perf_counter() - t_wait
-            ahead = (reader.submit(dataset.__getitem__, index + 1)
-                     if index + 1 < len(dataset) else None)
-            scene = sample["scene"]
-            tb = {k: torch.from_numpy(np.asarray(sample[k])[None]).to(dev)
+        for batch in loader:
+            index, scene = batch["index"], batch["scene"][0]
+            tb = {k: torch.from_numpy(np.asarray(batch[k])).to(dev)
                   for k in _BATCH_KEYS}
             t0 = time.perf_counter()
             gen = torch.Generator(device=dev).manual_seed(index)
             out = model(tb, generator=gen)
-            host = _host_outputs(model, out, sample, bool(middle_path))
+            host = _host_outputs(model, out, batch["offset"][0],
+                                 bool(middle_path))
             forward_s = time.perf_counter() - t0
-            rec = {"scene": scene, "index": index,
-                   "load_s": sample["load_s"], "wait_s": wait_s,
+            rec = {"scene": scene, "index": index, "rank": rank,
+                   "load_s": batch["load_s"], "wait_s": batch["wait_s"],
                    "forward_s": forward_s}
-            del sample, tb, out
+            del batch, tb, out
             pending.append((rec, writer.submit(
                 write_scene, scene, host, model.voxel_size, save_path,
                 middle_path, middle_viz, dev)))
@@ -258,7 +311,6 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, Any]]:
         while pending:
             records.append(_finish(*pending.pop(0)))
     finally:
-        reader.shutdown(wait=True, cancel_futures=True)
         writer.shutdown(wait=True)
     return records
 

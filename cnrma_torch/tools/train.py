@@ -55,8 +55,25 @@ so nothing is copied.  The JAX tool scores it with its training-grid
 model, which cannot take the ScanNet configs' val samples (ROADMAP F14).
 
 The step runs on ``cuda:0`` unless ``--device cpu``; a batch holds one
-scene.  The checkpoints load in ``python -m cnrma_torch.tools.test``.
-Multi-card data parallel training is not ported yet (ROADMAP).
+scene.  The reader runs ``data.workers_per_gpu`` x 2 worker threads (the
+JAX CLI's count; 4 in every config).  The checkpoints load in ``python -m
+cnrma_torch.tools.test``.
+
+Data parallel, one scene a rank, as the reference's DDP with
+``samples_per_gpu=1``:
+
+    torchrun --nproc_per_node N -m cnrma_torch.tools.train CONFIG [...]
+
+takes the process group from ``torchrun``'s environment (NCCL, rank r on
+``cuda:LOCAL_RANK``; gloo with ``--device cpu``).  Every rank reads its
+positions ``r, r + N, ...`` of the epoch's shared shuffle (the last
+incomplete round dropped), so an epoch has ``len(dataset) // N`` steps and
+the lr schedule counts those; each step averages the gradients, the
+batch norms' running statistics and the log vars over the ranks
+(``train/loop.py:train_step``).  The val split is shared out the same way
+without the drop and scored on rank 0.  Only rank 0 logs and writes
+checkpoints; every rank reads ``--load-from`` and ``--resume-from``.
+``--batch-size`` may only be N, one scene a rank (ROADMAP queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -72,7 +89,8 @@ from cnrma_torch.convert import load_pretrained_2d
 from cnrma_torch.core.builder import build_dataset, build_model
 from cnrma_torch.core.config import Config
 from cnrma_torch.data.loader import SceneLoader
-from cnrma_torch.tools.test import load_parameters
+from cnrma_torch.parallel import dist
+from cnrma_torch.tools.test import load_parameters, reader_workers
 from cnrma_torch.train.loop import evaluate_split, run_training
 from cnrma_torch.train.optim import (
     FROZEN_PREFIXES_FREEZE_AT_2, build_lr_schedule, build_optimizer)
@@ -93,7 +111,11 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    help="stop after N optimizer steps")
     p.add_argument("--cfg-options", nargs="+", default=[])
     p.add_argument("--device", default="cuda:0",
-                   help="cuda:0 (default) or cpu")
+                   help="cuda:0 (default) or cpu; under torchrun a rank "
+                        "takes cuda:LOCAL_RANK unless this is cpu")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="scenes a step over all ranks: only the world "
+                        "size (one scene a rank)")
     return p.parse_args(argv)
 
 
@@ -117,12 +139,13 @@ def test_twin(cfg, model: nn.Module) -> nn.Module:
     return twin
 
 
-def val_evaluator(cfg, model: nn.Module, seed: int, device
+def val_evaluator(cfg, model: nn.Module, seed: int, device, group=None
                   ) -> Tuple[Optional[Callable[[], Dict[str, float]]], int,
                              str]:
     """(the evaluator ``run_training`` calls, the interval in epochs, the
-    metric) of the config's ``evaluation`` over ``data.val``; no evaluator
-    when the config has neither or the split cannot be built."""
+    metric) of the config's ``evaluation`` over ``data.val``, each rank
+    reading its share of the split; no evaluator when the config has
+    neither or the split cannot be built."""
     eval_cfg = cfg.get("evaluation", {}) or {}
     metric = str(eval_cfg.get("metric", "loss"))
     interval = max(1, int(eval_cfg.get("interval", 1)))
@@ -134,10 +157,13 @@ def val_evaluator(cfg, model: nn.Module, seed: int, device
         print(f"WARNING: val split unavailable ({e}); mid-training "
               "evaluation disabled", flush=True)
         return None, interval, metric
-    loader = SceneLoader(dataset, shuffle=False)
+    loader = SceneLoader(dataset, shuffle=False,
+                         num_workers=reader_workers(cfg),
+                         rank=dist.rank(group), world_size=dist.world(group),
+                         drop_last=False)
     twin = test_twin(cfg, model)
-    return (lambda: evaluate_split(twin, loader, device, metric), interval,
-            metric)
+    return (lambda: evaluate_split(twin, loader, device, metric,
+                                   group=group), interval, metric)
 
 
 def main(argv: Optional[Sequence[str]] = None
@@ -149,17 +175,35 @@ def main(argv: Optional[Sequence[str]] = None
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device here "
                          "(pass --device cpu to run on the CPU)")
+    group, rank_dev = dist.init_from_env(dev.type)
+    try:
+        return _train(args, group, rank_dev or dev)
+    finally:
+        dist.shutdown(group)
+
+
+def _train(args, group, dev: torch.device
+           ) -> Tuple[List[Dict[str, Any]], Optional[str]]:
+    world = dist.world(group)
+    if args.batch_size is not None and args.batch_size != world:
+        raise SystemExit(
+            f"--batch-size {args.batch_size}: a step takes one scene a "
+            f"rank, {world} here; more than one scene a batch on one card "
+            "is the next slice (ROADMAP queue 1 item 1)")
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_options(dict(kv.split("=", 1)
                                     for kv in args.cfg_options))
     work_dir = args.work_dir or cfg.get("work_dir", "./work_dirs/default")
     os.makedirs(work_dir, exist_ok=True)
-    with open(os.path.join(work_dir, "config_dump.py"), "w") as f:
-        f.write(cfg.dump())
+    if dist.is_main(group):
+        with open(os.path.join(work_dir, "config_dump.py"), "w") as f:
+            f.write(cfg.dump())
 
     dataset = build_dataset(cfg, "train", seed=args.seed)
-    loader = SceneLoader(dataset, seed=args.seed)
+    loader = SceneLoader(dataset, seed=args.seed,
+                         num_workers=reader_workers(cfg),
+                         rank=dist.rank(group), world_size=world)
     torch.manual_seed(args.seed)
     model = build_model(cfg, mode="train")
     load_from = args.load_from or cfg.get("load_from")
@@ -190,8 +234,8 @@ def main(argv: Optional[Sequence[str]] = None
     state = TrainState(model=model, optimizer=optimizer)
     if resume_from:
         load_checkpoint(resume_from, state)
-    evaluate, eval_interval, eval_metric = val_evaluator(cfg, model,
-                                                         args.seed, dev)
+    evaluate, eval_interval, eval_metric = val_evaluator(
+        cfg, model, args.seed, dev, group)
     return run_training(
         state, loader, epochs=int(cfg.get("total_epochs", 1)),
         work_dir=work_dir, device=dev, seed=args.seed,
@@ -199,7 +243,7 @@ def main(argv: Optional[Sequence[str]] = None
         checkpoint_interval=int(cfg.get("checkpoint_config", {}).get(
             "interval", 10)),
         max_steps=args.max_steps, evaluate=evaluate,
-        eval_interval=eval_interval, eval_metric=eval_metric)
+        eval_interval=eval_interval, eval_metric=eval_metric, group=group)
 
 
 if __name__ == "__main__":

@@ -24,7 +24,9 @@ import numpy as np
 import torch
 
 from cnrma_torch.eval.indoor_eval import indoor_eval
+from cnrma_torch.models.layers import BatchNorm
 from cnrma_torch.ops.nms import multiclass_nms_np
+from cnrma_torch.parallel import dist
 from cnrma_torch.timing import mark, stage_marks
 from cnrma_torch.train.optim import Optimizer
 from cnrma_torch.train.state import TrainState, save_checkpoint
@@ -53,32 +55,81 @@ def total_loss(losses: Dict[str, torch.Tensor]) -> torch.Tensor:
     return sum(v for k, v in losses.items() if "loss" in k)
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The draws of step ``step`` of a run seeded ``seed``."""
-    return torch.Generator(device=device).manual_seed(
-        (int(seed) << 32) + int(step))
+def step_generator(seed: int, step: int, device, rank: int = 0
+                   ) -> torch.Generator:
+    """The draws of step ``step`` of a run seeded ``seed``, on rank
+    ``rank``: rank 0's seed is ``(seed << 32) + step``, and another rank
+    folds its number into it (JAX's ``fold_in(rng, axis_index)``), so a
+    one-process run draws what rank 0 does."""
+    base = (int(seed) << 32) + int(step)
+    if rank:
+        base = int(np.random.SeedSequence([base, int(rank)]).generate_state(
+            1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(base)
+
+
+def running_stats(model: torch.nn.Module) -> List[torch.Tensor]:
+    """The running statistics a training step moves: those of every batch
+    norm that is not frozen, in module order."""
+    return [b for m in model.modules()
+            if isinstance(m, BatchNorm) and not m.frozen
+            for b in (m.running_mean, m.running_var)]
+
+
+def mean_over_ranks(model: torch.nn.Module, log_vars: Dict[str, Any],
+                    group) -> None:
+    """The data-parallel part of a step, after each rank's backward: one
+    fp32 bucket of every parameter's gradient (zeros for ``None``, the
+    frozen ones too, whose norm the clip counts as optax's does), every
+    moved running statistic and the log vars, all-reduced once and
+    divided by the world size.  The means replace the gradients (as DDP
+    leaves them), the statistics (averaged as the JAX step's ``pmean``
+    does, where DDP would broadcast rank 0's) and the log vars."""
+    params = [p for _, p in model.named_parameters()]
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    stats = running_stats(model)
+    logs = list(log_vars.values())
+    parts = grads + stats + logs
+    flat = dist.all_mean(dist.flatten_bucket(parts), group)
+    means = dist.unflatten_bucket(flat, parts)
+    for p, g in zip(params, means):
+        p.grad = g
+    with torch.no_grad():
+        for b, m in zip(stats, means[len(grads):]):
+            b.copy_(m)
+    for k, v in zip(log_vars, means[len(grads) + len(stats):]):
+        log_vars[k] = v
 
 
 def train_step(model: torch.nn.Module, optimizer: Optimizer,
                batch: Dict[str, Any],
                generator: Optional[torch.Generator] = None,
-               **draws) -> Dict[str, torch.Tensor]:
+               group=None, **draws) -> Dict[str, torch.Tensor]:
     """One optimizer step on ``batch`` (tensors on the model's device).
     ``draws`` (``uniform``, ``aug_draws``) replace the generator's, as in
-    ``CNRMA.forward_train``.  Returns the log vars as 0-dim tensors: each
+    ``CNRMA.forward_train``.  With a process ``group`` each rank steps on
+    its own scene, and ``mean_over_ranks`` averages the gradients, the
+    running statistics and the log vars before the clip, so every rank
+    takes the same step.  Returns the log vars as 0-dim tensors: each
     loss, ``total_loss`` and ``grad_norm`` (the global norm of the
     gradients before the clip)."""
     model.train()
+    if group is not None:
+        draws["group"] = group
     losses = model.forward_train(batch, generator=generator, **draws)
     loss = total_loss(losses)
     model.zero_grad(set_to_none=True)
     loss.backward()
     mark("backward")
+    log_vars = {k: v.detach() for k, v in losses.items()}
+    log_vars["total_loss"] = loss.detach()
+    if group is not None:
+        mean_over_ranks(model, log_vars, group)
+        mark("all_reduce")
     grad_norm = optimizer.step({n: p.grad for n, p in
                                 model.named_parameters()})
     mark("optimizer")
-    log_vars = {k: v.detach() for k, v in losses.items()}
-    log_vars["total_loss"] = loss.detach()
     log_vars["grad_norm"] = grad_norm
     return log_vars
 
@@ -110,40 +161,51 @@ def _scene_boxes(out: Dict[str, Any], batch: Dict[str, Any], i: int,
 @torch.no_grad()
 def _score_val(model: torch.nn.Module, val_loader, device, losses: bool,
                boxes: bool, score_thr: float = 0.01, iou_thr: float = 0.5,
-               uniforms: Optional[Sequence[torch.Tensor]] = None
-               ) -> Dict[str, float]:
+               uniforms: Optional[Sequence[torch.Tensor]] = None,
+               group=None) -> Dict[str, float]:
     """One pass of ``model``'s test forward (eval-mode norms) over
     ``val_loader``: the mean losses (``losses``) and the mAP (``boxes``).
-    Batch ``i``'s subsample draws from a generator seeded ``i`` (the test
-    CLI's per-scene seed), or ``uniforms[i]`` where given."""
+    Batch ``i``'s subsample draws from a generator seeded by its scene's
+    ``index`` (the test CLI's per-scene seed; its position where it has
+    none), or ``uniforms[i]`` where given.  With a process ``group`` each
+    rank runs its shard of the split (a ``SceneLoader`` with its rank),
+    the scenes' results gather to rank 0, which scores them in scene
+    order as one process would; the other ranks return ``{}``."""
     device = torch.device(device)
     was_training = model.training
     model.eval()
-    sums: Dict[str, float] = {}
-    n = 0
-    gts, preds = [], []
+    scenes: List[Tuple[int, Dict[str, float], List[Tuple]]] = []
     try:
         for i, batch in enumerate(val_loader):
+            index = batch.get("index", i)
             on_device = device_batch(batch, device)
             draw = ({"uniform": uniforms[i].to(device)} if uniforms
                     is not None else {"generator": torch.Generator(
-                        device=device).manual_seed(i)})
+                        device=device).manual_seed(index)})
             out = model(on_device, **draw)
+            found = {}
             if losses:
                 found = {k: float(v) for k, v in out["losses"].items()}
                 found["total_loss"] = sum(v for k, v in found.items()
                                           if "loss" in k)
-                for k, v in found.items():
-                    sums[k] = sums.get(k, 0.0) + v
-                n += 1
-            if boxes:
-                for b in range(out["bboxes"].shape[0]):
-                    p, g = _scene_boxes(out, batch, b, model.with_yaw,
-                                        score_thr, iou_thr, device)
-                    preds.append(p)
-                    gts.append(g)
+            pairs = [_scene_boxes(out, batch, b, model.with_yaw, score_thr,
+                                  iou_thr, device)
+                     for b in range(out["bboxes"].shape[0])] if boxes else []
+            scenes.append((index, found, pairs))
     finally:
         model.train(was_training)
+    gathered = dist.gather_to_main(scenes, group)
+    if gathered is None:
+        return {}
+    scenes = sorted((s for part in gathered for s in part),
+                    key=lambda s: s[0])
+    sums: Dict[str, float] = {}
+    for _, found, _ in scenes:
+        for k, v in found.items():
+            sums[k] = sums.get(k, 0.0) + v
+    n = len(scenes) if losses else 0
+    preds = [p for _, _, pairs in scenes for p, _ in pairs]
+    gts = [g for _, _, pairs in scenes for _, g in pairs]
     scores = {f"val/{k}": v / max(n, 1) for k, v in sums.items()}
     if boxes:
         m = indoor_eval(gts, preds, iou_thrs=(0.25, 0.5),
@@ -181,20 +243,27 @@ def evaluate_val_map(model: torch.nn.Module, val_loader, device,
 
 
 def evaluate_split(model: torch.nn.Module, val_loader, device,
-                   metric: str = "loss") -> Dict[str, float]:
+                   metric: str = "loss", group=None) -> Dict[str, float]:
     """``evaluate_val`` and, for ``metric='mAP'``, ``evaluate_val_map`` in
-    one pass of the test forward over ``val_loader``."""
+    one pass of the test forward over ``val_loader``; with a process
+    ``group``, over each rank's shard, scored on rank 0 (``{}`` on the
+    others)."""
     return _score_val(model, val_loader, device, losses=True,
-                      boxes=metric == "mAP" and hasattr(model, "detector"))
+                      boxes=metric == "mAP" and hasattr(model, "detector"),
+                      group=group)
 
 
 class TextLogger:
-    """A line every ``interval`` steps, to stdout and ``train.log``."""
+    """A line every ``interval`` steps, to stdout and ``train.log``.  A
+    logger that is not ``enabled`` (a rank other than 0) writes
+    nothing."""
 
-    def __init__(self, work_dir: Optional[str], interval: int = 10):
+    def __init__(self, work_dir: Optional[str], interval: int = 10,
+                 enabled: bool = True):
         self.interval = max(1, interval)
+        self.enabled = enabled
         self.path = None
-        if work_dir:
+        if work_dir and enabled:
             os.makedirs(work_dir, exist_ok=True)
             self.path = os.path.join(work_dir, "train.log")
 
@@ -220,6 +289,8 @@ class TextLogger:
                               + [f"{k} {v:.4f}" for k, v in scores.items()]))
 
     def _write(self, line: str) -> None:
+        if not self.enabled:
+            return
         print(line, flush=True)
         if self.path:
             with open(self.path, "a") as f:
@@ -231,8 +302,8 @@ def run_training(state: TrainState, loader, *, epochs: int, work_dir: str,
                  checkpoint_interval: int = 10,
                  max_steps: Optional[int] = None,
                  evaluate: Optional[Callable[[], Dict[str, float]]] = None,
-                 eval_interval: int = 1, eval_metric: str = "loss"
-                 ) -> Tuple[List[Dict[str, Any]], Optional[str]]:
+                 eval_interval: int = 1, eval_metric: str = "loss",
+                 group=None) -> Tuple[List[Dict[str, Any]], Optional[str]]:
     """Epochs ``state.epoch`` .. ``epochs - 1`` over ``loader``; stops after
     ``max_steps`` optimizer steps in all.  Checkpoints
     ``{work_dir}/epoch_{n}.pt`` after every ``checkpoint_interval``-th
@@ -253,10 +324,18 @@ def run_training(state: TrainState, loader, *, epochs: int, work_dir: str,
     ``{work_dir}/best.pt`` keeps the state with the lowest
     ``val/total_loss``, or with ``eval_metric='mAP'`` the highest
     ``val/mAP_0.25`` (its ``meta``: ``epoch``, ``val_total_loss``,
-    ``val_mAP_0.25``, ``eval_metric``)."""
+    ``val_mAP_0.25``, ``eval_metric``).
+
+    With a process ``group`` every rank runs the loop on its shard of the
+    epoch (``loader`` a ``SceneLoader`` with its rank) through the
+    data-parallel ``train_step``, its draws from ``step_generator`` with
+    its rank; ``evaluate`` runs on every rank (each scores its shard and
+    rank 0 the whole split).  Only rank 0 logs and writes checkpoints,
+    between two barriers; every rank returns its records and the path."""
     device = torch.device(device)
     cuda = device.type == "cuda"
-    logger = TextLogger(work_dir, log_interval)
+    main = dist.is_main(group)
+    logger = TextLogger(work_dir, log_interval, enabled=main)
     records: List[Dict[str, Any]] = []
     path = None
     best = float("inf")
@@ -270,10 +349,10 @@ def run_training(state: TrainState, loader, *, epochs: int, work_dir: str,
             with stage_marks(device) as marks:
                 on_device = device_batch(batch, device)
                 mark("copy")
-                log_vars = train_step(state.model, state.optimizer,
-                                      on_device,
-                                      step_generator(seed, state.step,
-                                                     device))
+                log_vars = train_step(
+                    state.model, state.optimizer, on_device,
+                    step_generator(seed, state.step, device,
+                                   dist.rank(group)), group=group)
             log_vars = {k: float(v) for k, v in log_vars.items()}
             if cuda:
                 torch.cuda.synchronize(device)
@@ -298,20 +377,30 @@ def run_training(state: TrainState, loader, *, epochs: int, work_dir: str,
         if evaluate is not None and records and (
                 done or epoch % eval_interval == 0 or epoch == epochs):
             best = _evaluate(state, evaluate, logger, records[-1], epoch,
-                             eval_metric, best, work_dir, device)
+                             eval_metric, best, work_dir, device, group)
         if done or state.epoch % checkpoint_interval == 0 \
                 or state.epoch == epochs:
-            path = save_checkpoint(os.path.join(work_dir, name), state)
+            path = os.path.join(work_dir, name)
+            _on_main(group, lambda: save_checkpoint(path, state))
     return records, path
+
+
+def _on_main(group, write: Callable[[], Any]) -> None:
+    """``write()`` on rank 0 alone, between barriers: no rank reads or
+    goes past a checkpoint that is half written."""
+    dist.barrier(group)
+    if dist.is_main(group):
+        write()
+    dist.barrier(group)
 
 
 def _evaluate(state: TrainState, evaluate, logger: TextLogger,
               rec: Dict[str, Any], epoch: int, metric: str, best: float,
-              work_dir: str, device: torch.device) -> float:
+              work_dir: str, device: torch.device, group=None) -> float:
     """One evaluation of the val split after epoch ``epoch`` (1-based):
     logged, kept in ``rec``, and ``best.pt`` written where it beats
-    ``best`` (a loss minimises, an mAP maximises).  Returns the best
-    score."""
+    ``best`` (a loss minimises, an mAP maximises; the scores are rank
+    0's, the others' ``{}``).  Returns the best score."""
     t0 = time.perf_counter()
     scores = evaluate()
     if device.type == "cuda":
@@ -321,10 +410,16 @@ def _evaluate(state: TrainState, evaluate, logger: TextLogger,
     logger.val(epoch, state.step, scores, rec["eval_s"])
     score = (-scores.get("val/mAP_0.25", 0.0) if metric == "mAP"
              else scores.get("val/total_loss", float("inf")))
-    if score < best:
-        best = score
-        save_checkpoint(os.path.join(work_dir, "best.pt"), state, meta={
-            "epoch": epoch, "val_total_loss": scores.get("val/total_loss"),
-            "val_mAP_0.25": scores.get("val/mAP_0.25"),
-            "eval_metric": metric})
+    better = dist.is_main(group) and score < best
+    if group is not None:                 # rank 0's scores decide
+        flag = torch.tensor([float(better)], device=device)
+        better = bool(dist.all_mean(flag, group).item() > 0)
+    if better:
+        best = min(best, score)
+        _on_main(group, lambda: save_checkpoint(
+            os.path.join(work_dir, "best.pt"), state, meta={
+                "epoch": epoch,
+                "val_total_loss": scores.get("val/total_loss"),
+                "val_mAP_0.25": scores.get("val/mAP_0.25"),
+                "eval_metric": metric}))
     return best

@@ -175,9 +175,60 @@ def test_cli_scene_alone_equals_scene_in_run(cli_run):
                                   np.load(os.path.join(mid2, s + "_vert.npy")))
 
 
+@pytest.fixture(scope="module")
+def sharded_run(cli_run, tmp_path_factory):
+    """The CLI over two CPU processes (``--n-devices 2``) with
+    ``--max-scenes 3``: rank 0 writes scenes 0 and 2, rank 1 scene 1."""
+    from cnrma_torch.tools import test as test_cli
+    _, ckpt, _, options = cli_run
+    root = tmp_path_factory.mktemp("sharded")
+    save, mid = str(root / "res"), str(root / "mid")
+    records = test_cli.main([CONFIG, ckpt, "--device", "cpu",
+                             "--n-devices", "2", "--max-scenes", "3",
+                             "--save-path", save, "--middle-save-path", mid,
+                             "--cfg-options", *options])
+    return save, mid, records
+
+
+def test_cli_n_devices_writes_the_one_process_files(cli_run, sharded_run):
+    """Each scene's files from its rank equal the one-process run's: the
+    subsample is seeded by the scene's global index and the frame draws
+    are made in scene order on every rank."""
+    _, _, runs, _ = cli_run
+    save1, mid1, _ = runs[2]
+    save, mid, records = sharded_run
+    assert [(r["index"], r["rank"]) for r in records] == [(0, 0), (1, 1),
+                                                          (2, 0)]
+    for s in ("scene0000_00", "scene0001_00"):
+        for f in (s + ".npz", s + "_bbox_raw.npz"):
+            a = _load_all(os.path.join(save1, s, f))
+            b = _load_all(os.path.join(save, s, f))
+            assert a.keys() == b.keys()
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k],
+                                              err_msg=f + ":" + k)
+        with open(os.path.join(save1, s, s + ".ply"), "rb") as f1, \
+                open(os.path.join(save, s, s + ".ply"), "rb") as f2:
+            assert f1.read() == f2.read()
+        np.testing.assert_array_equal(
+            np.load(os.path.join(mid1, s + "_vert.npy")),
+            np.load(os.path.join(mid, s + "_vert.npy")))
+
+
+def test_cli_n_devices_writes_exactly_max_scenes(sharded_run):
+    save, mid, records = sharded_run
+    scenes = ["scene0000_00", "scene0001_00", "scene0002_00"]
+    assert sorted(os.listdir(save)) == scenes and len(records) == 3
+    assert sorted(os.listdir(mid)) == [s + "_vert.npy" for s in scenes]
+    for s in scenes:
+        assert sorted(os.listdir(os.path.join(save, s))) == sorted(
+            [s + ".npz", s + ".ply", s + "_bbox_raw.npz"])
+
+
 def test_cli_reads_at_most_one_scene_ahead(cli_run, tmp_path, monkeypatch):
-    """However fast the reader is against the forward, the CLI holds at
-    most two samples at once: the scene it runs and the next one."""
+    """However fast the reader is against the forward, the CLI with one
+    reader thread holds at most two samples at once: the scene it runs
+    and the next one."""
     import weakref
     from cnrma_torch.tools import test as test_cli
     _, ckpt, _, options = cli_run
@@ -209,7 +260,8 @@ def test_cli_reads_at_most_one_scene_ahead(cli_run, tmp_path, monkeypatch):
                         lambda *a, **k: Counted(build(*a, **k)))
     records = test_cli.main([CONFIG, ckpt, "--device", "cpu",
                              "--save-path", str(tmp_path / "res"),
-                             "--cfg-options", *options])
+                             "--cfg-options", *options,
+                             "data.workers_per_gpu=0"])
     assert len(records) == 3
     assert peak[0] == 2 and alive[0] == 0
 
