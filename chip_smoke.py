@@ -45,7 +45,7 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
   6. reference: a tiny scene in fp32 on the GPU (kernels) and on the CPU
      (plain versions), same parameters and draw; TSDFs, points and boxes
      must agree.
-  6b. test CLI: four synthetic ScanNet scenes written on disk (60 frames
+  6b. test CLI: three synthetic ScanNet scenes written on disk (60 frames
      of 1296x968 JPEG, a room TSDF over the 256x256x96 grid, the planted
      boxes as GT) through ``python -m cnrma_torch.tools.test`` with
      ``configs/ray_marching_scannet.py`` at its own test widths and
@@ -58,7 +58,7 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
      ``CNRMA_CAPACITY_DEBUG=1``, its capacity lines printed; the test
      reader alone over two such scenes at 1 and 4 worker threads in
      turns (seconds a scene, each ``load_s`` and ``wait_s``; the samples
-     must hash alike); the test CLI over the four scenes with
+     must hash alike); the test CLI over the three scenes with
      ``--n-devices 2`` (two processes on the one card) against the
      one-process run: TSDFs and points within 1e-5, raw box rows matched
      as sets, where only two near-tied rows may swap at a cut (the
@@ -115,7 +115,7 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
      merged file with finite losses.  The stage-1 reader alone over the
      two rooms at 1 and 4 workers, as phase 6b's.
   ddp. on phase 6f's scenes and dumps: the train CLI for 2 steps of
-     stage 2 (500,000 points) and of stage 3 (40 views, 192x192x80,
+     stage 2 (500,000 points) and of stage 3 (20 views, 192x192x80,
      fp32) in this process, then as a child under ``torchrun
      --nproc_per_node 1`` on NCCL (``chip_smoke.py --train-child``): the
      step-1 losses equal (bit for bit, or within 1e-5: the voxelisation's
@@ -127,6 +127,22 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
      statistics within stated tolerances, the detector's positive count
      and centerness sum as the group averaged them against the mean of
      the two scenes' own; on several cards also stage 3 on a rank a card.
+  batch. training batches of two scenes, on phase 6f's scenes and dumps:
+     the tiny fp32 step of phase 6d at two scenes on the GPU against the
+     CPU at ``TRAIN_LIMITS`` (the 3D U-Net held as a group, like the
+     tower's), K1b launched once a scene, then the step with the sparse
+     batch norms' per-scene statistics planted, which must break the
+     running statistics' limit on a detector norm; the train CLI at
+     ``--batch-size 2`` for 3 steps on stage 2 (500,000 points a scene)
+     and stage 1 (50 views, 160x160x64, bf16), K1 and K1b twice a stage-1
+     step; stage 3 at 14 views a scene (widths and grid kept: 40 do not
+     fit) for 3 steps at one scene and then at two from the merged
+     checkpoint, K1, K1b and K2 once a scene, the two-scene run scoring
+     the val split in one batch of two at the test grid (finite, or F13's
+     overflow); each step's seconds and the peak memory beside one
+     scene's (stages 1 and 2: phase 6f's runs); the val batch through the
+     test model once against each scene alone: TSDFs and kept points
+     within 1e-5, raw box rows as sets.
   arkit. the ARKitScenes 7-DoF path on two synthetic ARKit scenes (60 PNG
      frames of 256x192 in ARKit's ``lowres_wide`` layout, five yaw boxes a
      room) under ``build/``: the yaw model's tiny fp32 forward GPU against
@@ -160,8 +176,9 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
      TSDF's sign agreement with the planted room (the consistent route
      held at ``PREP_SIGN_BOUND``, the F17 route's printed).
   learn. ``python -m cnrma_torch.tools.overfit_full``, ScanNet-style and
-     ``--yaw``: the tiny CNRMA trained on two synthetic rooms, one scene a
-     step; the first and last total and reconstruction losses, mAP@0.25
+     ``--yaw``: the tiny CNRMA trained on two synthetic rooms as one batch
+     for 70 steps; the first and last total and reconstruction losses,
+     mAP@0.25
      and @0.50, seconds a step, peak memory, the launches; fails unless
      the tool's PASS rule holds.
   7. probes: first the dot kernel on random integers in [-4, 4] at the
@@ -925,7 +942,7 @@ def gpu_against_cpu(dev, model, batch, uniform, tag: str) -> None:
 
 CLI_CONFIG = "configs/ray_marching_scannet.py"
 CLI_FILES = ("{s}.npz", "{s}.ply", "{s}_bbox_raw.npz")
-CLI_SCENES = 4              # phase 6b's scenes, also over two processes
+CLI_SCENES = 3              # phase 6b's scenes, also over two processes
 
 
 def _check_scene_files(save: str, middle: str, scene: str, dim,
@@ -1341,11 +1358,12 @@ def phase_volume_backward(dev) -> dict:
     return row
 
 
-def tiny_train_case():
+def tiny_train_case(scenes: int = 1):
     """The tiny training step of ``tests/test_torch_train.py`` without
     JAX: the tiny CNRMA at 1 cm detector voxels, ``synthesize_parameters``
-    (seed 1), two 64x64 views and a GT box twice (numpy seed 0), the
-    subsample's uniform draw and one augmentation draw fixed."""
+    (seed 1), ``scenes`` scenes of two 64x64 views and a GT box twice
+    (numpy seed 0), the subsample's uniform draws and one augmentation
+    draw a scene fixed."""
     from cnrma_torch.models import cn_rma as tcn
     from cnrma_torch.models.fcaf3d import DetectionCapacities
     from cnrma_torch.synthetic import synthesize_parameters
@@ -1360,23 +1378,25 @@ def tiny_train_case():
     pose = np.eye(4, dtype=np.float32)
     pose[:3, 3] = [0.8, 0.8, -0.4]
     proj = (intr @ np.linalg.inv(pose)[:3]).astype(np.float32)
+    b = scenes
     batch = {
-        "imgs": torch.from_numpy(rng.rand(1, 2, 64, 64, 3).astype(np.float32)
+        "imgs": torch.from_numpy(rng.rand(b, 2, 64, 64, 3).astype(np.float32)
                                  * 255),
-        "projection": torch.from_numpy(np.broadcast_to(proj, (1, 2, 3, 4))
+        "projection": torch.from_numpy(np.broadcast_to(proj, (b, 2, 3, 4))
                                        .copy()),
-        "view_valid": torch.ones(1, 2, dtype=torch.bool),
-        "offset": torch.zeros(1, 3),
-        "gt_boxes": torch.tensor([[[0.8, 0.8, 0.8, 0.6, 0.6, 0.6, 0.0]] * 2]),
-        "gt_labels": torch.ones(1, 2, dtype=torch.int32),
-        "gt_valid": torch.ones(1, 2, dtype=torch.bool),
+        "view_valid": torch.ones(b, 2, dtype=torch.bool),
+        "offset": torch.zeros(b, 3),
+        "gt_boxes": torch.tensor([[[0.8, 0.8, 0.8, 0.6, 0.6, 0.6, 0.0]] * 2]
+                                 * b),
+        "gt_labels": torch.ones(b, 2, dtype=torch.int32),
+        "gt_valid": torch.ones(b, 2, dtype=torch.bool),
         "tsdf_list": {f"tsdf_gt_{k}": torch.from_numpy(
-            rng.rand(1, n, n, n).astype(np.float32) * 2 - 1)
+            rng.rand(b, n, n, n).astype(np.float32) * 2 - 1)
             for k, n in (("010", 16), ("020", 8), ("040", 4))}}
     draws = dict(
-        uniform=torch.from_numpy(rng.rand(1, 1024).astype(np.float32)),
+        uniform=torch.from_numpy(rng.rand(b, 1024).astype(np.float32)),
         aug_draws=[tcn.draw_feature_transform(
-            torch.Generator().manual_seed(1), "cpu")])
+            torch.Generator().manual_seed(1 + i), "cpu") for i in range(b)])
     return ({k: v.clone() for k, v in model.state_dict().items()}, model,
             batch, draws)
 
@@ -1414,22 +1434,24 @@ def _cosine(a, b) -> float:
     return float(a @ b) / (na * nb)
 
 
-def _train_readings(got, want) -> dict:
+def _train_readings(got, want, group_names=TOWER_GROUPS) -> dict:
     """The readings of ``TRAIN_LIMITS`` for the step ``got`` against
     ``want`` ((losses, gradients, statistics) each), with the worst leaf
-    or group."""
+    or group: the leaves of ``group_names`` held as groups and by cosine,
+    every other leaf by its largest magnitude."""
     (gl, gg, gs), (wl, wg, ws) = got, want
+    grouped = [k for k in wg if k.startswith(group_names)]
     r = {"losses": max((abs(gl[k] - w) / abs(w), k)
                        for k, w in wl.items() if w),
          "leaf": max((float((gg[k] - wg[k]).abs().max()
                             / wg[k].abs().max().clamp(min=1e-30)), k)
-                     for k in wg if not k.startswith("tower2d.")),
+                     for k in wg if k not in grouped),
          "leaf_cos": min((_cosine(gg[k].ravel(), wg[k].ravel()), k)
-                         for k in wg if k.startswith("tower2d.")),
+                         for k in grouped),
          "stats": max((float((gs[k].float() - ws[k].float()).abs().max()), k)
                       for k in ws if ws[k].is_floating_point())}
     groups = []
-    for name in TOWER_GROUPS:
+    for name in group_names:
         keys = [k for k in wg if k.startswith(name)]
         a = torch.cat([gg[k].ravel() for k in keys])
         b = torch.cat([wg[k].ravel() for k in keys])
@@ -1625,7 +1647,7 @@ DETECTOR_LOSSES = ("val/loss_centerness", "val/loss_bbox", "val/loss_cls",
 
 
 def _check_val(tag: str, records, seen, grid, n_scenes: int, metric: str,
-               work_dir: str) -> str:
+               work_dir: str, batch: int = 1) -> str:
     """The train CLI's evaluation at its stop by ``--max-steps``: a val
     record, each of the ``n_scenes`` val scenes scored at ``grid`` (the
     config's test grid), and ``best.pt`` with the record's scores in its
@@ -1636,7 +1658,8 @@ def _check_val(tag: str, records, seen, grid, n_scenes: int, metric: str,
     (``seen`` of ``_eval_probe``): a checkpoint 3 steps from its
     initialisation can (ROADMAP F13), and then the losses of the boxes
     past fp32's range are not finite, as the reference's would be; a
-    value not finite for any other reason fails.  Returns the path of
+    value not finite for any other reason fails.  The split is read in
+    batches of ``batch`` scenes, a forward a batch.  Returns the path of
     ``best.pt``.  The CLI's warn-and-skip of a missing val split fails
     here."""
     from cnrma_torch.train.state import read_checkpoint
@@ -1672,10 +1695,11 @@ def _check_val(tag: str, records, seen, grid, n_scenes: int, metric: str,
             0.0 <= rec["val"][k] <= 1.0 for k in maps)):
         raise AssertionError(f"[{tag}] val mAP and mAR must lie in [0, 1]: "
                              f"{rec['val']}")
-    if len(grids) != n_scenes * len(evals) or set(grids) != {tuple(grid)}:
+    forwards = -(-n_scenes // batch) * len(evals)
+    if len(grids) != forwards or set(grids) != {tuple(grid)}:
         raise AssertionError(f"[{tag}] the val split must be scored at the "
-                             f"test grid {tuple(grid)}, a forward a scene: "
-                             f"{grids}")
+                             f"test grid {tuple(grid)}, a forward a batch "
+                             f"of {batch}: {grids}")
     best = os.path.join(work_dir, "best.pt")
     meta = read_checkpoint(best)["meta"]
     log(f"[{tag}] best.pt: {meta}")
@@ -2142,7 +2166,7 @@ def phase_three_stages(dev) -> list:
                "trains"))
         s2 = None
         for name, points_dir, used in runs:
-            _, ckpt, launches, _ = _run_train_cli(
+            recs2, ckpt, launches, _ = _run_train_cli(
                 [STAGE2_CONFIG, "--work-dir", os.path.join(
                     root, "s2_" + name.replace(" ", "_")), "--max-steps",
                  "3", "--cfg-options", f"data.train.data_root={data}",
@@ -2153,7 +2177,8 @@ def phase_three_stages(dev) -> list:
             if any(launches.values()):
                 raise AssertionError(f"stage 2 launches no volume or march "
                                      f"kernel: {launches}")
-            s2 = s2 or ckpt
+            if s2 is None:
+                s2, stage2_records = ckpt, recs2
 
         # 6. merge, then one stage-3 step from the merged file
         merged = os.path.join(root, "merged.pt")
@@ -2183,6 +2208,8 @@ def phase_three_stages(dev) -> list:
                                  f"K2 once: {launches}")
         log(f"[stages] phase took {time.perf_counter() - t_phase:.1f} s")
         phase_ddp(dev, root, data, ann, syn)
+        phase_batch(dev, root, data, ann, syn, merged,
+                    {"stage 1": records, "stage 2": stage2_records})
         return calls
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2204,6 +2231,9 @@ DDP_LEAF_TOL = 1e-2         # the worst leaf, of its own norm
 DDP_STATS_TOL = 1.5e-5      # running statistics, of their largest magnitude
 DDP_PARAM_SHARE = 1.5e-3    # params moved apart by more than lr / 100
 DDP_COUNTS_TOL = 1e-6       # the group's [n_pos, denorm], relative
+# stage 3's views a scene at world size 1 (40 in the config: the views
+# were cut, widths and grid kept, to pay for the batch phase's time)
+DDP_STAGE3_VIEWS = 20
 
 
 def _sample_hash(batch) -> str:
@@ -2267,6 +2297,29 @@ def _matched(a: np.ndarray, b: np.ndarray, tol: float) -> np.ndarray:
             <= tol * scale).any(1)
 
 
+def _box_rows_against(boxes_a, scores_a, boxes_b, scores_b, what: str
+                      ) -> int:
+    """Two sets of raw box rows (boxes and scores together) matched as
+    sets within ``CLI_BOX_TOL``, but for rows that pair off across the two
+    with top scores within ``CLI_BOX_TOL``: near-equal scores can swap
+    across a level's top-k cut (F6).  Raises past that; returns the rows
+    that pair off so."""
+    rows = [np.nan_to_num(np.concatenate([bx, sc], 1), posinf=1e30,
+                          neginf=-1e30)
+            for bx, sc in ((boxes_a, scores_a), (boxes_b, scores_b))]
+    if rows[0].shape != rows[1].shape:
+        raise AssertionError(f"{what}: {rows[1].shape} raw box rows against "
+                             f"{rows[0].shape}")
+    k = scores_a.shape[1]
+    top = [np.sort(r[~_matched(r, o, CLI_BOX_TOL), -k:].max(1))
+           for r, o in (rows, rows[::-1])]
+    if len(top[0]) != len(top[1]) or not np.allclose(
+            *top, rtol=0, atol=CLI_BOX_TOL):
+        raise AssertionError(f"{what}: raw box rows differ, not as ties "
+                             f"swapped at a cut: top scores {top}")
+    return len(top[0])
+
+
 def _files_against(ref: str, got: str, scenes) -> dict:
     """Two test CLI runs' files of ``scenes`` (``ref``/``got`` each holding
     ``res`` and ``mid``): the TSDFs and the kept points within
@@ -2300,17 +2353,10 @@ def _files_against(ref: str, got: str, scenes) -> dict:
         if a["bboxes"].shape != b["bboxes"].shape:
             raise AssertionError(f"{s}: {b['bboxes'].shape} raw boxes "
                                  f"against {a['bboxes'].shape}")
-        rows = [np.nan_to_num(np.concatenate([x["bboxes"], x["scores"]], 1),
-                              posinf=1e30, neginf=-1e30) for x in (a, b)]
-        k = a["scores"].shape[1]
-        top = [np.sort(r[~_matched(r, o, CLI_BOX_TOL), -k:].max(1))
-               for r, o in (rows, rows[::-1])]
-        errs["box_rows_unmatched"] = max(errs["box_rows_unmatched"],
-                                         len(top[0]))
-        if len(top[0]) != len(top[1]) or not np.allclose(
-                *top, rtol=0, atol=CLI_BOX_TOL):
-            raise AssertionError(f"{s}: raw box rows differ, not as ties "
-                                 f"swapped at a cut: top scores {top}")
+        errs["box_rows_unmatched"] = max(
+            errs["box_rows_unmatched"],
+            _box_rows_against(a["bboxes"], a["scores"], b["bboxes"],
+                              b["scores"], s))
     if errs["tsdf"] > CLI_FILE_TOL or errs["points"] > CLI_FILE_TOL:
         raise AssertionError(f"the files differ: {errs}")
     return errs
@@ -2721,8 +2767,9 @@ def _two_ranks(root: str, opts, device_type: str = "cuda") -> None:
 def phase_ddp(dev, root: str, data: str, ann: str, syn: str) -> None:
     """The data-parallel path on the card, on phase 6f's scenes and
     synthetic dumps: the train CLI at world size 1
-    under ``torchrun`` on NCCL (stage 2 at 500,000 points, stage 3 at 40
-    views and 192x192x80) against the same run without a group; on a
+    under ``torchrun`` on NCCL (stage 2 at 500,000 points, stage 3 at
+    ``DDP_STAGE3_VIEWS`` views and 192x192x80) against the same run
+    without a group; on a
     machine with several cards, stage 3 on a rank a card; stage 2 on two
     ranks (gloo sharing one card, or NCCL on two) against the one-process
     mean step."""
@@ -2743,6 +2790,7 @@ def phase_ddp(dev, root: str, data: str, ann: str, syn: str) -> None:
                                 "--cfg-options",
                                 f"data.train.data_root={data}",
                                 f"data.train.ann_file={ann}",
+                                f"data.train.num_frames={DDP_STAGE3_VIEWS}",
                                 "evaluation=None", "log_config.interval=1"],
                counters, {"volume_accum": 2, "volume_accum_bwd": 2,
                           "ray_march": 2})
@@ -2764,6 +2812,266 @@ def phase_ddp(dev, root: str, data: str, ann: str, syn: str) -> None:
     torch.cuda.empty_cache()
     _two_ranks(ddp, s2)
     log(f"[ddp] phase took {time.perf_counter() - t0:.1f} s ({card()})")
+
+
+# --- more than one scene a training batch ----------------------------------
+
+BATCH = 2                   # scenes a training batch in the batch phase
+# stage 3's views a scene at B = 2, widths and grid kept: the config's 40
+# do not fit (PERF.md: a scene holds about 23.0 GiB that does not scale
+# with the views and 0.75 GiB a view, plus 1.78 GiB of state; 14 views,
+# 68.9 GiB, are the most under 70)
+STAGE3_BATCH_VIEWS = 14
+# the tiny step at two scenes, card against CPU: the 2D tower's groups and
+# the 3D U-Net's as one more, whose norms see variances under their
+# epsilon at two scenes (tests/test_torch_batch.py, BATCH_LIMITS)
+BATCH_GROUPS = TOWER_GROUPS + ("backbone3d.",)
+EVAL_BATCH_TOL = 1e-5       # a scene's outputs in a batch against alone
+
+
+def _per_scene_statistics():
+    """The planted fault of the batch phase: the sparse batch norms take
+    each scene's own statistics and update the running ones once a scene
+    (the one-scene loop run over a batch).  Returns the undo."""
+    from cnrma_torch.models import layers
+    real = layers.MaskedBatchNorm.forward
+
+    def per_scene(self, feats, mask):
+        if feats.dim() == 2 or not self.training:
+            return real(self, feats, mask)
+        return torch.stack([real(self, f, m) for f, m in zip(feats, mask)])
+    layers.MaskedBatchNorm.forward = per_scene
+    return lambda: setattr(layers.MaskedBatchNorm, "forward", real)
+
+
+def _batch_reference(dev) -> None:
+    """The tiny fp32 training step of phase 6d at two scenes on the GPU
+    (kernels) and on the CPU (plain versions), same parameters, batch,
+    draws and kept points, at ``TRAIN_LIMITS`` with the U-Net held as a
+    group like the tower's (``BATCH_GROUPS``); K1b launched once a scene.
+    Then the step with the sparse norms' per-scene statistics planted
+    must break the running statistics' limit on a detector norm."""
+    from cnrma_torch.models import cn_rma as tcn
+    from cnrma_torch.ops import backproject as bp
+    state, model, batch, draws = tiny_train_case(BATCH)
+    real, kept = tcn._normalize_subsample, []
+
+    def spy(*args, **kw):
+        kept.append(real(*args, **kw))
+        return kept[-1]
+
+    def replay(*args, **kw):
+        replay.calls += 1
+        return tuple(t.to(dev) for t in kept[(replay.calls - 1) % BATCH])
+    gpu_batch = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                     if isinstance(v, dict) else v.to(dev))
+                 for k, v in batch.items()}
+    gpu_draws = dict(uniform=draws["uniform"].to(dev),
+                     aug_draws=[{k: v.to(dev) for k, v in d.items()}
+                                for d in draws["aug_draws"]])
+
+    def gpu_step():
+        model.load_state_dict(state)
+        model.zero_grad(set_to_none=True)
+        replay.calls = 0
+        return _step(model, gpu_batch, gpu_draws)
+    tcn._normalize_subsample = spy
+    try:
+        want = _step(model, batch, draws)
+        tcn._normalize_subsample = replay
+        model.to(dev)
+        bp.VOLUME_ACCUM_BWD.launches = 0
+        got = gpu_step()
+        launches = bp.VOLUME_ACCUM_BWD.launches
+        undo = _per_scene_statistics()
+        try:
+            bad = gpu_step()
+        finally:
+            undo()
+    finally:
+        tcn._normalize_subsample = real
+    r = _train_readings(got, want, BATCH_GROUPS)
+    log(f"[batch reference] tiny fp32 step of {BATCH} scenes, GPU vs CPU: "
+        f"K1b launched {launches}; kept points "
+        f"{[int(k[4].sum()) for k in kept]}; " + _fmt_readings(r))
+    fr = _train_readings(bad, want, BATCH_GROUPS)
+    caught = _train_failures(fr)
+    log(f"[batch reference] planted fault per-scene sparse statistics: "
+        f"breaks {caught}; " + _fmt_readings(fr))
+    if launches != BATCH or set(got[0]) != set(want[0]) \
+            or _train_failures(r):
+        raise AssertionError(f"the GPU step of {BATCH} scenes disagrees "
+                             f"with the CPU: {_train_failures(r)}")
+    if "stats" not in caught or not fr["stats"][1].startswith("detector."):
+        raise AssertionError("the running statistics' limit passes the "
+                             "per-scene statistics of the sparse norms")
+
+
+def _batch_eval(dev, cfg, ckpt: str) -> None:
+    """The val split's first batch of ``BATCH`` scenes through the test
+    model of ``ckpt`` once, and each scene alone, each scene's subsample
+    seeded by its index either way: the TSDFs and kept points within
+    ``EVAL_BATCH_TOL``, the same kept count, the raw box rows as sets
+    (``_box_rows_against``)."""
+    from cnrma_torch.core.builder import build_dataset, build_model
+    from cnrma_torch.data.loader import SceneLoader
+    from cnrma_torch.train.loop import device_batch
+    from cnrma_torch.train.state import read_checkpoint
+    model = build_model(cfg, mode="test")
+    model.load_state_dict(read_checkpoint(ckpt)["model"])
+    model.to(dev).eval()
+    loader = SceneLoader(build_dataset(cfg, "val", seed=0), shuffle=False,
+                         drop_last=False, batch_size=BATCH)
+    batch = next(iter(loader))
+    index = batch["index"]
+    tb = device_batch(batch, dev)
+
+    def gens(ids):
+        return [torch.Generator(dev).manual_seed(int(i)) for i in ids]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        both = model(tb, generator=gens(index))
+        torch.cuda.synchronize()
+        t_both = time.perf_counter() - t0
+        errs = {"tsdf": 0.0, "points": 0.0, "box rows paired off": 0}
+        t_one = 0.0
+        for b, i in enumerate(index):
+            one_batch = {k: (v[b:b + 1] if torch.is_tensor(v) else
+                             {kk: vv[b:b + 1] for kk, vv in v.items()})
+                         for k, v in tb.items()}
+            t0 = time.perf_counter()
+            one = model(one_batch, generator=gens([i]))
+            torch.cuda.synchronize()
+            t_one += time.perf_counter() - t0
+            for k, t in one["tsdf"].items():
+                errs["tsdf"] = max(errs["tsdf"], float(
+                    (both["tsdf"][k][b] - t[0]).abs().max()))
+            va, vb = both["points"].valid[b], one["points"].valid[0]
+            pa = torch.cat([both["points"].xyz[b][va],
+                            both["points"].feats[b][va]], 1).float().cpu()
+            pb = torch.cat([one["points"].xyz[0][vb],
+                            one["points"].feats[0][vb]], 1).float().cpu()
+            if pa.shape != pb.shape:
+                raise AssertionError(f"[batch eval] scene {i}: {len(pa)} "
+                                     f"kept points in the batch, {len(pb)} "
+                                     f"alone")
+            if len(pa):
+                errs["points"] = max(errs["points"], float(
+                    (pa - pb).abs().max() / max(1.0, float(
+                        pa.abs().max()))))
+            bv, ov = both["bbox_valid"][b], one["bbox_valid"][0]
+            errs["box rows paired off"] += _box_rows_against(
+                both["bboxes"][b][bv].float().cpu().numpy(),
+                both["scores"][b][bv].float().cpu().numpy(),
+                one["bboxes"][0][ov].float().cpu().numpy(),
+                one["scores"][0][ov].float().cpu().numpy(),
+                f"[batch eval] scene {i}")
+    log(f"[batch eval] the val batch of scenes {index} at "
+        f"{tuple(cfg.model.voxel_dim_test)} through the test model once "
+        f"({t_both:.3f} s) against each scene alone ({t_one:.3f} s): "
+        f"kept points {[int(v.sum()) for v in both['points'].valid]}, "
+        f"TSDF max|err| {errs['tsdf']:.3g}, points {errs['points']:.3g} "
+        f"(tol {EVAL_BATCH_TOL}), raw box rows matched as sets "
+        f"({errs['box rows paired off']} paired off as near ties)")
+    if errs["tsdf"] > EVAL_BATCH_TOL or errs["points"] > EVAL_BATCH_TOL:
+        raise AssertionError(f"a scene's test forward in a batch differs "
+                             f"from alone: {errs}")
+    del model, both, tb
+    torch.cuda.empty_cache()
+
+
+def _batch_steps(tag: str, recs) -> dict:
+    """The steps' seconds (the mean of those after the first, which pays
+    cuDNN's first use) and the peak memory of a train CLI run."""
+    later = [r["step_s"] for r in recs[1:]] or [recs[0]["step_s"]]
+    return {"step_s": statistics.mean(later),
+            "peak_gib": max(r["peak_gib"] or 0.0 for r in recs)}
+
+
+def phase_batch(dev, root: str, data: str, ann: str, syn: str,
+                merged: str, one_scene: dict) -> None:
+    """Training batches of ``BATCH`` scenes on the card, on phase 6f's two
+    scenes and synthetic dumps: the tiny step against the CPU with its
+    planted fault (``_batch_reference``); the train CLI at ``--batch-size
+    2`` for 3 steps on stage 2 (500,000 points a scene) and on stage 1
+    (50 views, 160x160x64, bf16), each step's seconds and the peak memory
+    beside phase 6f's one-scene runs of the same call (``one_scene``);
+    stage 3 at ``STAGE3_BATCH_VIEWS`` views a scene (widths and grid
+    kept) for 3 steps at one scene and then at two, from the merged
+    checkpoint, the two-scene run scoring the val split (the same two
+    scenes at the test grid) in one batch; K1, K1b and K2 once a scene;
+    that run's checkpoint through ``_batch_eval``."""
+    from cnrma_torch.core.config import Config
+    from cnrma_torch.ops.backproject import VOLUME_ACCUM, VOLUME_ACCUM_BWD
+    from cnrma_torch.ops.ray_marching import RAY_MARCH
+    t_phase = time.perf_counter()
+    counters = {"volume_accum": VOLUME_ACCUM,
+                "volume_accum_bwd": VOLUME_ACCUM_BWD, "ray_march": RAY_MARCH}
+    gc.collect()
+    torch.cuda.empty_cache()
+    _batch_reference(dev)
+    wd = os.path.join(root, "batch")
+    os.makedirs(wd)
+    base = [f"data.train.data_root={data}", f"data.train.ann_file={ann}",
+            "evaluation=None", "log_config.interval=1"]
+    runs = {"stage 2": ([STAGE2_CONFIG], [f"data.train.points_dir={syn}"],
+                        {"volume_accum": 0, "volume_accum_bwd": 0,
+                         "ray_march": 0}),
+            "stage 1": ([STAGE1_CONFIG], [],
+                        {"volume_accum": 3 * BATCH,
+                         "volume_accum_bwd": 3 * BATCH, "ray_march": 0})}
+    summary = {}
+    for tag, (cfg_arg, extra, want) in runs.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        recs, _, launches, _ = _run_train_cli(
+            cfg_arg + ["--work-dir", os.path.join(wd, tag.replace(" ", "")),
+                       "--batch-size", str(BATCH), "--max-steps", "3",
+                       "--cfg-options", *base, *extra], counters, 3,
+            f"batch {tag}")
+        if launches != want:
+            raise AssertionError(f"[batch {tag}] launches {launches}, not "
+                                 f"{want}: K1 and K1b once a scene")
+        summary[tag] = (_batch_steps(tag, one_scene[tag]),
+                        _batch_steps(tag, recs))
+    views = f"data.train.num_frames={STAGE3_BATCH_VIEWS}"
+    cfg3 = Config.fromfile(CLI_CONFIG)
+    val = os.path.join(data, "scannet_infos_val.pkl")
+    for b in (1, BATCH):
+        gc.collect()
+        torch.cuda.empty_cache()
+        extra = ([f"data.val.data_root={data}", f"data.val.ann_file={val}",
+                  "log_config.interval=1"] if b > 1 else base[2:])
+        probe = _eval_probe() if b > 1 else contextlib.nullcontext()
+        with probe as seen:
+            recs, ckpt, launches, _ = _run_train_cli(
+                [CLI_CONFIG, "--work-dir", os.path.join(wd, f"stage3_b{b}"),
+                 "--load-from", merged, "--batch-size", str(b),
+                 "--max-steps", "3", "--cfg-options", *base[:2], views,
+                 *extra], counters, 3, f"batch stage 3 B={b}")
+        scored = BATCH if b > 1 else 0
+        want = {"volume_accum": 3 * b + scored,
+                "volume_accum_bwd": 3 * b, "ray_march": 3 * b + scored}
+        if launches != want:
+            raise AssertionError(f"[batch stage 3 B={b}] launches "
+                                 f"{launches}, not {want}: K1, K1b and K2 "
+                                 f"once a scene a step, K1 and K2 once a "
+                                 f"val scene")
+        summary.setdefault("stage 3", []).append(_batch_steps("", recs))
+    _check_val("batch stage 3", recs, seen, cfg3.model.voxel_dim_test, 2,
+               "mAP", os.path.join(wd, f"stage3_b{BATCH}"), batch=BATCH)
+    cfg3.merge_from_options({"data.val.data_root": data,
+                             "data.val.ann_file": val})
+    _batch_eval(dev, cfg3, ckpt)
+    for tag, (one, two) in summary.items():
+        note = (f" at {STAGE3_BATCH_VIEWS} views a scene" if tag == "stage 3"
+                else " (one scene: phase 6f's run)")
+        log(f"[batch {tag}] a step of 1 scene {one['step_s']:.3f} s, of "
+            f"{BATCH} scenes {two['step_s']:.3f} s "
+            f"({two['step_s'] / one['step_s']:.2f}x){note}; peak memory "
+            f"{one['peak_gib']:.2f} -> {two['peak_gib']:.2f} GiB ({card()})")
+    log(f"[batch] phase took {time.perf_counter() - t_phase:.1f} s "
+        f"({card()})")
 
 
 ARKIT_CONFIG = "configs/ray_marching_arkit.py"
@@ -3428,15 +3736,20 @@ def phase_prep(dev) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
-LEARN_STEPS = 80            # the times each room is trained on
+# steps, each on both rooms as one batch (cut from 80 to pay for the batch
+# phase's time; both modes pass at 70 on the CPU and at 80 on the card,
+# PERF.md)
+LEARN_STEPS = 70
+LEARN_ROOMS = 2
 
 
 def phase_learn(dev) -> None:
     """The whole-model learning check: ``python -m
     cnrma_torch.tools.overfit_full --steps LEARN_STEPS``, ScanNet-style and
-    ``--yaw``, on the card, the launch counts set to 0 before each run and
-    read after (K1, K1b and K2 once a training step; K1 and K2 once a
-    scored scene); fails unless the tool's PASS rule holds."""
+    ``--yaw``, on the card, its two rooms as one batch, the launch counts
+    set to 0 before each run and read after (K1, K1b and K2 once a room a
+    training step; K1 and K2 once a scored room); fails unless the tool's
+    PASS rule holds."""
     from cnrma_torch.ops.backproject import VOLUME_ACCUM, VOLUME_ACCUM_BWD
     from cnrma_torch.ops.ray_marching import RAY_MARCH
     from cnrma_torch.tools import overfit_full
@@ -3452,18 +3765,20 @@ def phase_learn(dev) -> None:
         out = overfit_full.run(["--steps", str(LEARN_STEPS), *flags])
         launches = _counts(counters)
         steps = out["steps"]
-        log(f"[{tag}] {steps} steps (two rooms, one a step) in "
+        log(f"[{tag}] {steps} steps (two rooms a step) in "
             f"{time.perf_counter() - t0:.1f} s: total loss {out['first']:.4f}"
             f" -> {out['final']:.4f}, recon {out['first_recon']:.4f} -> "
             f"{out['final_recon']:.4f}; mAP@0.25 {out['mAP_0.25']:.4f}, "
             f"mAP@0.50 {out['mAP_0.50']:.4f}; {out['step_s']:.4f} s a step, "
             f"peak memory {out['peak_gib']:.2f} GiB; launches {launches}; "
             f"PASS {out['ok']}")
-        if launches != {"volume_accum": steps + 2, "volume_accum_bwd": steps,
-                        "ray_march": steps + 2}:
+        n = LEARN_ROOMS
+        if launches != {"volume_accum": n * steps + n,
+                        "volume_accum_bwd": n * steps,
+                        "ray_march": n * steps + n}:
             raise AssertionError(f"[{tag}] each step must launch K1, K1b and "
-                                 f"K2 once, each scored room K1 and K2: "
-                                 f"{launches}")
+                                 f"K2 once a room, each scored room K1 and "
+                                 f"K2: {launches}")
         if not out["ok"]:
             raise AssertionError(f"[{tag}] the learning check failed its "
                                  f"rule (total < 0.6 x first, recon < 0.5 x "

@@ -309,9 +309,11 @@ class CNRMA(nn.Module):
         scene-level march per scene (NeuS: all views at once through K2;
         depth: view by view in torch), global mean weight normalization,
         subsample to ``max_points``, pixel-feature gather, weight multiply.
-        ``uniform`` ([B, V * rays_per_view_cap]) replaces the generator's
-        draw.  An invalid view emits no point (the JAX package zeroes its
-        weights: the same kept set)."""
+        ``generator`` may be a list of one generator a scene (each scene's
+        draw then does not depend on its batch); ``uniform`` ([B, V *
+        rays_per_view_cap]) replaces the generators' draw.  An invalid view
+        emits no point (the JAX package zeroes its weights: the same kept
+        set)."""
         b, v, h, w, _ = feats.shape
         proj = self._scaled_projections(projections)
         neus = self.ray_marching_type == "neus"
@@ -319,6 +321,8 @@ class CNRMA(nn.Module):
                     and self.ray_samples > self.ray_skip_window
                     and all(n % self.ray_skip_factor == 0
                             for n in self.voxel_dim))
+        gens = (generator if isinstance(generator, (list, tuple))
+                else [generator] * b)
         scenes = []
         for i in range(b):
             if neus:
@@ -342,7 +346,7 @@ class CNRMA(nn.Module):
                     capacity=self.rays_per_view_cap)
             flat = RayMarchPoints(*(f.flatten(0, 1) for f in pts))
             scenes.append(_normalize_subsample(
-                flat, self.max_points, generator,
+                flat, self.max_points, gens[i],
                 None if uniform is None else uniform[i]))
         xyz, wts, uv, view, valid = (torch.stack(f) for f in zip(*scenes))
         pf = torch.stack([_gather_point_feats(feats[i], uv[i], view[i],
@@ -398,7 +402,8 @@ class CNRMA(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None,
                 uniform: Optional[torch.Tensor] = None) -> Dict[str, Any]:
-        """Test-mode forward.  Returns ``tsdf`` (the per-scale TSDFs),
+        """Test-mode forward (``generator`` one or a list of one a scene,
+        as ``ray_march`` takes it).  Returns ``tsdf`` (the per-scale TSDFs),
         ``points`` (the detector's input cloud, offset applied) and the raw
         per-level top-k ``bboxes``/``scores``/``bbox_valid``; with ground
         truth in the batch also ``losses`` (``test_losses``)."""
@@ -431,9 +436,14 @@ class CNRMA(nn.Module):
         ``gt_boxes`` [B, M, 7], ``gt_labels`` and ``gt_valid`` [B, M].
         The draws come from ``generator`` (first the subsample's, then per
         scene the augmentation's) unless ``uniform`` and ``aug_draws``
-        (one ``draw_feature_transform`` dict a scene) give them.  With a
-        process ``group`` (JAX's ``pmean_axis``) the detector's positive
-        count and centerness sum are its ranks' mean."""
+        (one ``draw_feature_transform`` dict a scene) give them.  A batch
+        of B scenes trains as the JAX package's does: the tower's norms
+        over its B x V views, the U-Net's over its B volumes, the
+        detector's over every scene's valid voxels, the TSDF losses pooled
+        over the batch, the volume, march and augmentation scene by
+        scene.  With a process ``group`` (JAX's ``pmean_axis``) the
+        detector's positive count and centerness sum are its ranks'
+        mean."""
         feats, view_valid, tsdf = self.reconstruct_views(batch)
         losses = self.recon_losses(tsdf, batch)
         fine = tsdf[f"scene_tsdf_{self.tsdf_head.keys[-1]}"]

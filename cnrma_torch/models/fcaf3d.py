@@ -3,13 +3,18 @@ decoding and the loss.
 
 Port of ``cnrma_tpu/models/fcaf3d.py`` on the fixed-capacity sparse
 tensors of ``cnrma_torch/ops/sparse.py``; capacities are the JAX package's
-``DetectionCapacities``.  The detector runs scene by scene and stacks the
-per-level outputs.  In eval mode every norm is per row (batch norm with
-running statistics) or per scene (the stem's instance norm), so that is
-exact for any batch.  In training the batch norms take their statistics
-over the scene's rows, so a training batch holds one scene: the JAX
-package's statistics over all scenes of a batch come with multi-scene
-steps (data parallel, one scene a card).
+``DetectionCapacities``.  A batch of B scenes goes through the network in
+lockstep, as a list of one ``SparseTensor`` a scene: the coordinate ops
+(voxelization, kernel maps, pooling, the generative transpose, skip adds,
+pruning) run scene by scene, as the JAX package's ``batch_map`` runs
+them; a convolution runs its offsets once over every scene's rows
+(``sparse.apply_sparse_conv_batch``); every masked batch norm takes its
+training statistics over the valid rows of all B scenes together and
+updates its running statistics once (JAX's ``MaskedBatchNorm`` over
+[B, N, C], ME's ``MinkowskiBatchNorm`` over the batch's active voxels),
+while the stem's instance norm stays per scene.  In eval mode every norm
+is per row or per scene, so a scene's output does not depend on its
+batch.  One scene takes exactly the one-scene ops.
 """
 
 from __future__ import annotations
@@ -47,8 +52,30 @@ def _kernel(k: int, cin: int, cout: int) -> nn.Parameter:
     return nn.Parameter(torch.randn(k, cin, cout) * math.sqrt(2.0 / (k * cin)))
 
 
+Scenes = List[sp.SparseTensor]
+KernelMap = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _normalize(norm: nn.Module, act, scenes: Scenes) -> Scenes:
+    """``act(norm(feats, valid))`` over the scenes' rows at once: one scene
+    as [N, C], several stacked as [B, N, C] (one capacity a level), so a
+    batch norm's statistics pool every scene's valid rows."""
+    if len(scenes) == 1:
+        feats, valid = scenes[0].feats, scenes[0].valid
+    else:
+        feats = torch.stack([st.feats for st in scenes])
+        valid = torch.stack([st.valid for st in scenes])
+    y = norm(feats, valid)
+    if act is not None:
+        y = act(y)
+    if len(scenes) == 1:
+        return [scenes[0].with_feats(y)]
+    return [st.with_feats(f) for st, f in zip(scenes, y.unbind(0))]
+
+
 class SparseConv(nn.Module):
-    """Sparse conv (+ masked BN or IN + activation) on one scene."""
+    """Sparse conv (+ masked BN or IN + activation) over a batch of
+    scenes."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  stride_factor: int = 1, capacity: Optional[int] = None,
@@ -64,24 +91,37 @@ class SparseConv(nn.Module):
         if self.norm is not None:
             self.norm = self.norm(features)
 
-    def forward(self, st: sp.SparseTensor, kmap=None) -> sp.SparseTensor:
+    def forward(self, scenes: Scenes,
+                kmaps: Optional[List[KernelMap]] = None) -> Scenes:
         offsets = sp.kernel_offsets(self.kernel_size)
         if self.stride_factor == 1:
-            out = sp.subm_conv(st, self.kernel, kmap=kmap, offsets=offsets)
+            if kmaps is None:
+                kmaps = [sp.kernel_map(st, offsets) for st in scenes]
+            sites = [(st.keys, st.coords) for st in scenes]
         else:
-            out = sp.strided_conv(st, self.kernel, self.stride_factor,
-                                  self.capacity, offsets=offsets)
+            sites, kmaps = [], []
+            for st in scenes:
+                keys, coords, kmap = sp.strided_kernel_map(
+                    st, offsets, self.stride_factor, self.capacity)
+                sites.append((keys, coords))
+                kmaps.append(kmap)
+        feats = sp.apply_sparse_conv_batch([st.feats for st in scenes],
+                                           self.kernel, kmaps)
+        outs = [sp.SparseTensor(keys=keys, coords=coords, feats=f,
+                                stride=st.stride * self.stride_factor,
+                                grid=st.grid)
+                for st, (keys, coords), f in zip(scenes, sites, feats)]
         if self.norm is not None:
-            out = out.with_feats(self.norm(out.feats, out.valid))
+            return _normalize(self.norm, self.act, outs)
         if self.act is not None:
-            out = out.with_feats(self.act(out.feats))
-        return out
+            outs = [st.with_feats(self.act(st.feats)) for st in outs]
+        return outs
 
 
 class SparseBasicBlock(nn.Module):
     """ME ResNet BasicBlock: conv3(s)-BN-relu, conv3-BN, (+ 1x1(s)-BN
-    downsample of the identity), add, relu.  A shared ``kmap`` serves both
-    convs when the stride is 1."""
+    downsample of the identity), add, relu.  Shared ``kmaps`` (one a
+    scene) serve both convs when the stride is 1."""
 
     def __init__(self, in_channels: int, features: int,
                  stride_factor: int = 1, capacity: Optional[int] = None):
@@ -95,11 +135,14 @@ class SparseBasicBlock(nn.Module):
                        "BN")
             if stride_factor != 1 or in_channels != features else None)
 
-    def forward(self, st: sp.SparseTensor, kmap=None) -> sp.SparseTensor:
-        y = self.conv1(st, kmap=kmap)
-        y = self.conv2(y, kmap=kmap if self.stride_factor == 1 else None)
-        identity = st if self.downsample is None else self.downsample(st)
-        return y.with_feats(F.relu(y.feats + identity.feats))
+    def forward(self, scenes: Scenes,
+                kmaps: Optional[List[KernelMap]] = None) -> Scenes:
+        y = self.conv1(scenes, kmaps=kmaps)
+        y = self.conv2(y, kmaps=kmaps if self.stride_factor == 1 else None)
+        identity = (scenes if self.downsample is None
+                    else self.downsample(scenes))
+        return [a.with_feats(F.relu(a.feats + b.feats))
+                for a, b in zip(y, identity)]
 
 
 class FCAF3DBackboneNet(nn.Module):
@@ -124,14 +167,16 @@ class FCAF3DBackboneNet(nn.Module):
                     capacities.levels[i] if b == 0 else None))
                 cin = p
 
-    def forward(self, st: sp.SparseTensor) -> List[sp.SparseTensor]:
-        x = sp.max_pool(self.stem(st), 2, self.capacities.stride4)
+    def forward(self, scenes: Scenes) -> List[Scenes]:
+        """The scenes' tensors at each of the four strides."""
+        x = [sp.max_pool(st, 2, self.capacities.stride4)
+             for st in self.stem(scenes)]
         outs = []
         for i, n_blocks in enumerate(self.layers):
             x = getattr(self, f"layer{i + 1}_block0")(x)
-            kmap = sp.kernel_map(x, sp.kernel_offsets(3))
+            kmaps = [sp.kernel_map(st, sp.kernel_offsets(3)) for st in x]
             for b in range(1, n_blocks):
-                x = getattr(self, f"layer{i + 1}_block{b}")(x, kmap=kmap)
+                x = getattr(self, f"layer{i + 1}_block{b}")(x, kmaps=kmaps)
             outs.append(x)
         return outs
 
@@ -146,15 +191,15 @@ class SparseUpBlock(nn.Module):
         self.norm1 = MaskedBatchNorm(features)
         self.conv = SparseConv(features, features, 3, 1, None, "BN", F.elu)
 
-    def forward(self, st: sp.SparseTensor) -> sp.SparseTensor:
-        x = sp.generative_transpose_conv(st, self.up_kernel)
-        x = x.with_feats(F.elu(self.norm1(x.feats, x.valid)))
-        return self.conv(x)
+    def forward(self, scenes: Scenes) -> Scenes:
+        x = [sp.generative_transpose_conv(st, self.up_kernel)
+             for st in scenes]
+        return self.conv(_normalize(self.norm1, F.elu, x))
 
 
 class LevelOut(NamedTuple):
     """Per-pyramid-level head outputs (fixed capacity; batched [B, N, ...]
-    out of ``FCAF3DDetector``, one scene [N, ...] inside)."""
+    out of the head, one scene [N, ...] inside)."""
     centerness: torch.Tensor
     bbox_pred: torch.Tensor
     cls_scores: torch.Tensor
@@ -191,25 +236,35 @@ class FCAF3DHeadNet(nn.Module):
                 self.add_module(f"up_block_{i + 1}", SparseUpBlock(
                     in_channels[i + 1], in_channels[i]))
 
-    def forward(self, inputs: List[sp.SparseTensor]) -> List[LevelOut]:
+    def forward(self, inputs: List[Scenes]) -> List[LevelOut]:
+        """The backbone's levels (each a list of the scenes' tensors) ->
+        per-level outputs stacked over the scenes."""
         offsets27 = sp.kernel_offsets(3)
         outs: List[LevelOut] = [None] * self.n_levels
         x = inputs[-1]
-        kmap27 = sp.kernel_map(x, offsets27)
+        kmap27 = [sp.kernel_map(st, offsets27) for st in x]
         prune_scores = None
         for i in range(self.n_levels - 1, -1, -1):
             if i < self.n_levels - 1:
-                parent = x
+                parents = x
                 x = getattr(self, f"up_block_{i + 1}")(x)
-                x = sp.add_skip_into_children(x, inputs[i], parent.keys)
-                scores = sp.interpolate_children_scores(
-                    prune_scores, kmap27, parent.valid)
                 keep = (min(self.capacities.neck[i], self.pts_threshold)
                         if self.pts_threshold > 0 else self.capacities.neck[i])
-                x = sp.prune_topk(x, scores, keep)
-                kmap27 = sp.kernel_map(x, offsets27)
-            out = getattr(self, f"out_block_{i}")(x, kmap=kmap27)
-            outs[i], prune_scores = self._forward_single(out, i)
+                pruned = []
+                for child, skip, parent, sc, km in zip(
+                        x, inputs[i], parents, prune_scores, kmap27):
+                    child = sp.add_skip_into_children(child, skip,
+                                                      parent.keys)
+                    scores = sp.interpolate_children_scores(sc, km,
+                                                            parent.valid)
+                    pruned.append(sp.prune_topk(child, scores, keep))
+                x = pruned
+                kmap27 = [sp.kernel_map(st, offsets27) for st in x]
+            out = getattr(self, f"out_block_{i}")(x, kmaps=kmap27)
+            singles = [self._forward_single(st, i) for st in out]
+            outs[i] = LevelOut(*(torch.stack(f) for f in
+                                 zip(*(lv for lv, _ in singles))))
+            prune_scores = [sc for _, sc in singles]
         return outs
 
     def _forward_single(self, st: sp.SparseTensor, level: int
@@ -289,20 +344,14 @@ class FCAF3DDetector(nn.Module):
     def forward(self, points: torch.Tensor, feats: torch.Tensor,
                 point_valid: torch.Tensor) -> List[LevelOut]:
         """points [B, P, 3] metric, feats [B, P, C], valid [B, P] ->
-        per-level outputs stacked over scenes."""
-        if self.training and points.shape[0] != 1:
-            raise ValueError(f"a training batch holds one scene here (the "
-                             f"sparse batch norms' statistics are the "
-                             f"scene's), got {points.shape[0]}")
-        scenes = []
-        for b in range(points.shape[0]):
-            st = sp.voxelize_points(points[b],
-                                    feats[b].to(self.compute_dtype),
-                                    point_valid[b], self.voxel_size,
-                                    self.capacities.voxelize)
-            scenes.append(self.head(self.backbone(st)))
-        return [LevelOut(*(torch.stack(f) for f in zip(*level)))
-                for level in zip(*scenes)]
+        per-level outputs stacked over scenes; in training the batch
+        norms' statistics pool the B scenes (module docstring)."""
+        scenes = [sp.voxelize_points(points[b],
+                                     feats[b].to(self.compute_dtype),
+                                     point_valid[b], self.voxel_size,
+                                     self.capacities.voxelize)
+                  for b in range(points.shape[0])]
+        return self.head(self.backbone(scenes))
 
     def loss(self, level_outs: List[LevelOut], gt_boxes: torch.Tensor,
              gt_labels: torch.Tensor, gt_valid: torch.Tensor, group=None

@@ -100,16 +100,19 @@ class BatchNorm(nn.Module):
 
 
 class MaskedBatchNorm(BatchNorm):
-    """BatchNorm of sparse rows [N, C] over the valid rows (``mask``;
-    ME ``MinkowskiBatchNorm`` over the active voxels); invalid rows come
-    out as 0."""
+    """BatchNorm of sparse rows [..., N, C] over the valid rows (``mask``
+    [..., N]) of every leading axis: a batch of scenes [B, N, C] takes one
+    mean and variance over all its scenes' valid rows (ME
+    ``MinkowskiBatchNorm`` over the batch's active voxels); invalid rows
+    come out as 0."""
 
     def forward(self, feats: torch.Tensor, mask: torch.Tensor
                 ) -> torch.Tensor:
         if self.training:
-            m = mask.float()[:, None]
+            c = feats.shape[-1]
+            m = mask.reshape(-1).float()[:, None]
             n = torch.clamp(m.sum(), min=1.0)
-            xf = feats.float() * m
+            xf = feats.reshape(-1, c).float() * m
             mean = xf.sum(dim=0) / n
             var = torch.clamp((xf * xf).sum(dim=0) / n - mean * mean,
                               min=0.0)
@@ -118,12 +121,13 @@ class MaskedBatchNorm(BatchNorm):
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
         y = (feats.float() - mean) * inv + self.bias
-        return torch.where(mask[:, None], y, 0.0).to(feats.dtype)
+        return torch.where(mask[..., None], y, 0.0).to(feats.dtype)
 
 
 class MaskedInstanceNorm(nn.Module):
-    """Instance norm of one scene's sparse rows [N, C] over its valid rows
-    (ME ``MinkowskiInstanceNorm``); invalid rows come out as 0."""
+    """Instance norm of sparse rows [..., N, C] over each scene's valid
+    rows (``mask`` [..., N]; ME ``MinkowskiInstanceNorm``): statistics per
+    scene and channel; invalid rows come out as 0."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -133,14 +137,14 @@ class MaskedInstanceNorm(nn.Module):
 
     def forward(self, feats: torch.Tensor, mask: torch.Tensor
                 ) -> torch.Tensor:
-        m = mask.float()[:, None]
-        n = torch.clamp(m.sum(), min=1.0)
+        m = mask.float()[..., None]
+        n = torch.clamp(m.sum(dim=-2, keepdim=True), min=1.0)
         xf = feats.float() * m
-        mean = xf.sum(dim=0, keepdim=True) / n
-        var = (xf * xf).sum(dim=0, keepdim=True) / n - mean * mean
+        mean = xf.sum(dim=-2, keepdim=True) / n
+        var = (xf * xf).sum(dim=-2, keepdim=True) / n - mean * mean
         inv = torch.rsqrt(torch.clamp(var, min=0.0) + self.eps)
         y = (feats.float() - mean) * inv * self.weight + self.bias
-        return torch.where(mask[:, None], y, 0.0).to(feats.dtype)
+        return torch.where(mask[..., None], y, 0.0).to(feats.dtype)
 
 
 class Conv(nn.Module):

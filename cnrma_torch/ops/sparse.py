@@ -1,5 +1,7 @@
-"""Fixed-capacity sparse voxel tensors and sparse convolution, one scene at
-a time.
+"""Fixed-capacity sparse voxel tensors and sparse convolution.  Every
+coordinate op (voxelization, kernel maps, pooling, the generative
+transpose, skip adds, pruning) runs on one scene; a convolution can run
+over several scenes' rows at once (``apply_sparse_conv_batch``).
 
 Port of ``cnrma_tpu/ops/sparse.py`` (the MinkowskiEngine replacement).  A
 ``SparseTensor`` holds packed keys, coordinates and features at a fixed
@@ -21,7 +23,7 @@ gathers that carry a gradient are ``index_select``: its backward is an
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -134,6 +136,24 @@ def apply_sparse_conv(feats: torch.Tensor, weights: torch.Tensor,
     return acc.to(feats.dtype)
 
 
+def apply_sparse_conv_batch(feats: Sequence[torch.Tensor],
+                            weights: torch.Tensor,
+                            kmaps: Sequence[Tuple[torch.Tensor, torch.Tensor]]
+                            ) -> List[torch.Tensor]:
+    """``apply_sparse_conv`` of several scenes at once: their rows side by
+    side ([sum N_b, C]), each scene's kernel-map indices shifted by its
+    first row, so each offset's gather and matmul runs once for the
+    batch; returns each scene's output rows.  One scene takes
+    ``apply_sparse_conv`` itself."""
+    if len(feats) == 1:
+        return [apply_sparse_conv(feats[0], weights, *kmaps[0])]
+    starts = np.cumsum([0] + [f.shape[0] for f in feats[:-1]]).tolist()
+    idx = torch.cat([i + s for (i, _), s in zip(kmaps, starts)], dim=1)
+    found = torch.cat([f for _, f in kmaps], dim=1)
+    out = apply_sparse_conv(torch.cat(list(feats)), weights, idx, found)
+    return list(out.split([i.shape[1] for i, _ in kmaps]))
+
+
 def subm_conv(st: SparseTensor, weights: torch.Tensor,
               kmap: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               offsets: Optional[np.ndarray] = None) -> SparseTensor:
@@ -160,6 +180,19 @@ def downsample_coords(st: SparseTensor, factor: int, capacity: int
     return out_keys, st.grid.unpack(out_keys)
 
 
+def strided_kernel_map(st: SparseTensor, offsets: np.ndarray, factor: int,
+                       capacity: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor,
+                                  Tuple[torch.Tensor, torch.Tensor]]:
+    """The coordinates of a strided op's output (``downsample_coords``)
+    and its kernel map: offsets in input-stride units around each output
+    coordinate.  Returns (keys, coords, (idx, found))."""
+    out_keys, out_coords = downsample_coords(st, factor, capacity)
+    kmap = kernel_map(st, offsets, query_coords=out_coords,
+                      query_keys=out_keys, offset_stride=st.stride)
+    return out_keys, out_coords, kmap
+
+
 def strided_conv(st: SparseTensor, weights: torch.Tensor, factor: int,
                  capacity: int, offsets: Optional[np.ndarray] = None
                  ) -> SparseTensor:
@@ -167,9 +200,8 @@ def strided_conv(st: SparseTensor, weights: torch.Tensor, factor: int,
     offsets in input-stride units around each output coordinate."""
     if offsets is None:
         offsets = kernel_offsets(round(len(weights) ** (1 / 3)))
-    out_keys, out_coords = downsample_coords(st, factor, capacity)
-    idx, found = kernel_map(st, offsets, query_coords=out_coords,
-                            query_keys=out_keys, offset_stride=st.stride)
+    out_keys, out_coords, (idx, found) = strided_kernel_map(
+        st, offsets, factor, capacity)
     return SparseTensor(keys=out_keys, coords=out_coords,
                         feats=apply_sparse_conv(st.feats, weights, idx,
                                                 found),
@@ -182,9 +214,8 @@ def max_pool(st: SparseTensor, factor: int, capacity: int) -> SparseTensor:
     r = range(factor)
     offsets = np.array([(x, y, z) for z in r for y in r for x in r],
                        np.int32)
-    out_keys, out_coords = downsample_coords(st, factor, capacity)
-    idx, found = kernel_map(st, offsets, query_coords=out_coords,
-                            query_keys=out_keys, offset_stride=st.stride)
+    out_keys, out_coords, (idx, found) = strided_kernel_map(
+        st, offsets, factor, capacity)
     neg = torch.finfo(st.feats.dtype).min
     acc = st.feats.new_full((capacity, st.num_channels), neg)
     for k in range(offsets.shape[0]):

@@ -1,6 +1,7 @@
-"""What the probe entry points share: the device they run on, the index
-check of their kernel wrappers, and the record of one kernel at its bench
-shape that ``chip_smoke.py`` holds against its plain version."""
+"""What the entry points share: TF32 off for the CLIs that run the model;
+for the probes, the device they run on, the index check of their kernel
+wrappers, and the record of one kernel at its bench shape that
+``chip_smoke.py`` holds against its plain version."""
 
 from __future__ import annotations
 
@@ -11,6 +12,15 @@ from typing import Callable, Optional
 import torch
 
 from cnrma_torch.ops._build import LaunchCounter
+
+
+def no_tf32() -> None:
+    """fp32 means fp32: no TF32 in cuDNN's convolutions or cuBLAS's
+    matmuls (torch turns it on for cuDNN by default).  Every fp32 parity
+    check and time of the port is taken so; each CLI that runs the model
+    sets it at its start."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def add_device_arg(parser: argparse.ArgumentParser) -> None:

@@ -15,18 +15,16 @@ trained model's test forward is then scored through the per-class NMS
 draws yawed, elongated boxes and trains the 7-DoF detector (the rotated IoU
 loss, the yaw decoding, rotated NMS and rotated mAP).
 
-PASS, the JAX tool's rule: the total loss under 0.6 of the first, the
-reconstruction loss under 0.5 of the first, and mAP@0.25 on the training
-rooms at least ``--map-target``.
+The ``--scenes`` rooms train as one batch for ``--steps`` steps, as in
+the JAX tool: every step takes all of them, and the batch norms (the
+detector's sparse ones too) take their statistics over the batch.
 
-One divergence: a training batch of the port holds one scene (the
-detector's sparse batch norms refuse more in training), where the JAX tool
-trains its scenes as one batch.  So the port takes one scene a step, in
-turns, for ``--scenes`` x ``--steps`` steps, and each scene is seen
-``--steps`` times; the first and last losses are the means over the first
-and the last round of scenes.
+PASS, the JAX tool's rule: the last step's total loss under 0.6 of the
+first step's, its reconstruction loss under 0.5 of the first's, and
+mAP@0.25 on the training rooms at least ``--map-target``.
 
-The run is on ``cuda:0`` unless ``--device cpu``; it returns 0 on PASS.
+The run is on ``cuda:0`` unless ``--device cpu``, with TF32 off; it
+returns 0 on PASS.
 """
 
 from __future__ import annotations
@@ -43,6 +41,7 @@ from cnrma_torch.eval.indoor_eval import indoor_eval
 from cnrma_torch.models.cn_rma import CNRMA
 from cnrma_torch.models.fcaf3d import DetectionCapacities
 from cnrma_torch.ops.nms import multiclass_nms_np
+from cnrma_torch.tools._common import no_tf32
 from cnrma_torch.train.loop import device_batch, step_generator, train_step
 from cnrma_torch.train.optim import build_optimizer
 
@@ -248,13 +247,6 @@ def tiny_model(yaw: bool) -> CNRMA:
         use_feature_transform=False)
 
 
-def scene_batch(batch: Dict[str, Any], i: int) -> Dict[str, Any]:
-    """Scene ``i`` of a ``build_batch`` batch, as a batch of one."""
-    one = {k: v[i:i + 1] for k, v in batch.items() if k != "tsdf_list"}
-    one["tsdf_list"] = {k: v[i:i + 1] for k, v in batch["tsdf_list"].items()}
-    return one
-
-
 def _recon(losses: Dict[str, float]) -> float:
     return sum(v for k, v in losses.items() if "tsdf" in k)
 
@@ -263,7 +255,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser(description="Overfit the whole CNRMA on "
                                              "synthetic rooms")
     ap.add_argument("--steps", type=int, default=400,
-                    help="times each scene is trained on")
+                    help="optimizer steps, each on every room")
     ap.add_argument("--scenes", type=int, default=2)
     ap.add_argument("--views", type=int, default=8)
     ap.add_argument("--map-target", type=float, default=0.5)
@@ -281,6 +273,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     reconstruction losses, the mAPs, the seconds a step, the peak device
     memory (GiB, on a GPU) and ``ok``, the PASS rule."""
     args = parse_args(argv)
+    no_tf32()
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device here "
@@ -292,8 +285,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                                    WIDTH, VOXEL_DIM, VOXEL_SIZE, N_CLASSES,
                                    yaw_max=yaw_max)
     print(f"scene gen: {time.time() - t0:.0f}s", flush=True)
-    batches = [device_batch(scene_batch(batch_np, i), dev)
-               for i in range(args.scenes)]
+    batch = device_batch(batch_np, dev)
 
     torch.manual_seed(0)
     model = tiny_model(args.yaw).to(dev)
@@ -304,33 +296,32 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         torch.cuda.reset_peak_memory_stats(dev)
     totals, recons = [], []
     t0 = time.perf_counter()
-    n = args.scenes
-    for i in range(args.steps * n):
-        log_vars = train_step(model, optimizer, batches[i % n],
+    for i in range(args.steps):
+        log_vars = train_step(model, optimizer, batch,
                               step_generator(0, i, dev))
         losses = {k: float(v) for k, v in log_vars.items()}
         totals.append(losses["total_loss"])
         recons.append(_recon(losses))
-        r = i // n
-        if i % n == n - 1 and (r % 20 == 0 or r == args.steps - 1):
-            print(f"step {r:4d}  total {np.mean(totals[-n:]):.4f}  "
-                  f"recon {np.mean(recons[-n:]):.4f}  "
+        if i % 20 == 0 or i == args.steps - 1:
+            print(f"step {i:4d}  total {totals[-1]:.4f}  "
+                  f"recon {recons[-1]:.4f}  "
                   f"({time.perf_counter() - t0:.0f}s)", flush=True)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     step_s = (time.perf_counter() - t0) / max(1, len(totals))
-    first, final = float(np.mean(totals[:n])), float(np.mean(totals[-n:]))
-    first_recon = float(np.mean(recons[:n]))
-    final_recon = float(np.mean(recons[-n:]))
+    first, final = totals[0], totals[-1]
+    first_recon, final_recon = recons[0], recons[-1]
 
     model.eval()
+    n = args.scenes
+    out = model(batch, generator=[torch.Generator(dev).manual_seed(i)
+                                  for i in range(n)])
     results, gts = [], []
     for i in range(n):
-        out = model(batches[i], generator=torch.Generator(dev).manual_seed(i))
-        v = out["bbox_valid"][0].cpu().numpy()
+        v = out["bbox_valid"][i].cpu().numpy()
         bb, sc, lb = multiclass_nms_np(
-            out["bboxes"][0].cpu().numpy()[v],
-            out["scores"][0].cpu().numpy()[v],
+            out["bboxes"][i].cpu().numpy()[v],
+            out["scores"][i].cpu().numpy()[v],
             score_thr=0.05, iou_thr=0.5, device=dev)
         bb = bb.copy()
         if len(bb):

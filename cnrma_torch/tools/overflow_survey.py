@@ -90,7 +90,9 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     from cnrma_torch.synthetic import write_scannet
     from cnrma_torch.tools import test as test_cli
     from cnrma_torch.tools import train as train_cli
+    from cnrma_torch.tools._common import no_tf32
     args = parse_args(argv)
+    no_tf32()
     start = time.perf_counter()
     os.makedirs("build", exist_ok=True)
     root = tempfile.mkdtemp(prefix="overflow_survey_", dir="build")
@@ -103,7 +105,7 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
             head["overflowed"] += over
             head["unexplained"] += bad
         if isinstance(module, FCAF3DBackboneNet) and not module.training:
-            for st in outs:
+            for st in (st for level in outs for st in level):
                 f = st.feats[st.valid]
                 if f.numel():
                     largest["value"] = max(largest["value"],

@@ -32,7 +32,8 @@ from a stage-1 checkpoint): its detector tensors keep their ``--seed``
 synthesis and the CLI prints their count; any other missing or unexpected
 key fails the load.
 
-The forward runs on ``cuda:0`` unless ``--device cpu``.  W reader
+The forward runs on ``cuda:0`` unless ``--device cpu``, with TF32 off in
+cuDNN and cuBLAS (fp32 is fp32), in every rank too.  W reader
 threads (``data.workers_per_gpu`` x 2, the JAX train CLI's count; one
 where that is 0) decode and resample the next W scenes while the device
 runs this one (``data/loader.py``: the frame draws stay in scene order
@@ -67,6 +68,7 @@ from cnrma_torch.data.loader import SceneLoader
 from cnrma_torch.geometry.tsdf import TSDF
 from cnrma_torch.models.fcaf3d_only import FCAF3DOnly
 from cnrma_torch.synthetic import synthesize_parameters
+from cnrma_torch.tools._common import no_tf32
 from cnrma_torch.utils.ply import write_ply_mesh, write_ply_points
 
 _BATCH_KEYS = ("imgs", "projection", "view_valid", "offset")
@@ -218,6 +220,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, Any]]:
     and index, the seconds of reading, waiting, forward and writing, the
     mesh's faces, the PLY's bytes), every rank's with ``--n-devices``."""
     args = parse_args(argv)
+    no_tf32()
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device here "
@@ -226,10 +229,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, Any]]:
     if n == 1:
         return run_rank(args, 0, 1, dev)
     results = mp.get_context("spawn").SimpleQueue()
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
     procs = mp.start_processes(
-        _rank_main, args=(args, n, results, tf32), nprocs=n, join=False,
+        _rank_main, args=(args, n, results), nprocs=n, join=False,
         start_method="spawn")
     records: List[Dict[str, Any]] = []
     done = False
@@ -240,12 +241,11 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, Any]]:
     return sorted(records, key=lambda r: r["index"])
 
 
-def _rank_main(rank: int, args, world: int, results, tf32) -> None:
-    """Rank ``rank`` of ``--n-devices``: its device, its scenes, with the
-    caller's TF32 settings (cuDNN's, cuBLAS's), so that its files are the
-    ones the caller's process would write."""
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
-        = tf32
+def _rank_main(rank: int, args, world: int, results) -> None:
+    """Rank ``rank`` of ``--n-devices``: its device, its scenes, with TF32
+    off as in the caller, so that its files are the ones the caller's
+    process would write."""
+    no_tf32()
     if args.device == "cpu":
         dev = torch.device("cpu")
     else:

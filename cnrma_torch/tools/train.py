@@ -3,7 +3,7 @@ ARKitScenes recipe over a dataset split.
 
     python -m cnrma_torch.tools.train CONFIG [--work-dir DIR]
         [--load-from CKPT | --resume-from CKPT] [--seed S] [--max-steps N]
-        [--cfg-options k=v ...] [--device cpu]
+        [--batch-size B] [--cfg-options k=v ...] [--device cpu]
 
 Port of ``tools/train.py`` on one device: the config's training split and
 model (``build_dataset(cfg, "train")``, ``build_model(cfg, "train")``), the
@@ -54,26 +54,35 @@ model whose parameters and buffers are the training model's own tensors,
 so nothing is copied.  The JAX tool scores it with its training-grid
 model, which cannot take the ScanNet configs' val samples (ROADMAP F14).
 
-The step runs on ``cuda:0`` unless ``--device cpu``; a batch holds one
-scene.  The reader runs ``data.workers_per_gpu`` x 2 worker threads (the
-JAX CLI's count; 4 in every config).  The checkpoints load in ``python -m
+The step runs on ``cuda:0`` unless ``--device cpu``, with TF32 off in
+cuDNN and cuBLAS (fp32 is fp32).  ``--batch-size B`` (default: one scene
+a rank) is the number of scenes a step takes over all ranks, as the JAX
+CLI's: the B scenes of each step are consecutive scenes of the epoch's
+shuffle, the batch norms take their statistics over the step's scenes
+(the sparse ones over every scene's valid voxels), and an epoch has
+``len(dataset) // B`` steps, which the lr schedule counts.  The val split
+is scored in batches of B too, the last one partial.  The reader runs
+``data.workers_per_gpu`` x 2 worker threads (the JAX CLI's count; 4 in
+every config).  The checkpoints load in ``python -m
 cnrma_torch.tools.test``.
 
-Data parallel, one scene a rank, as the reference's DDP with
-``samples_per_gpu=1``:
+Data parallel, as the reference's DDP (``samples_per_gpu=1``: B = N):
 
     torchrun --nproc_per_node N -m cnrma_torch.tools.train CONFIG [...]
 
 takes the process group from ``torchrun``'s environment (NCCL, rank r on
-``cuda:LOCAL_RANK``; gloo with ``--device cpu``).  Every rank reads its
-positions ``r, r + N, ...`` of the epoch's shared shuffle (the last
-incomplete round dropped), so an epoch has ``len(dataset) // N`` steps and
-the lr schedule counts those; each step averages the gradients, the
-batch norms' running statistics and the log vars over the ranks
-(``train/loop.py:train_step``).  The val split is shared out the same way
-without the drop and scored on rank 0.  Only rank 0 logs and writes
-checkpoints; every rank reads ``--load-from`` and ``--resume-from``.
-``--batch-size`` may only be N, one scene a rank (ROADMAP queue 1 item 1).
+``cuda:LOCAL_RANK``; gloo with ``--device cpu``).  B must be a multiple
+of N, and any other value is refused before the group is joined.  Of
+each round of B scenes of the epoch's shared shuffle, rank r reads the
+contiguous block ``[r * B / N, (r + 1) * B / N)`` (the JAX batch split
+over its mesh; at B = N positions ``r, r + N, ...``), the last
+incomplete round dropped; its norms take their statistics over its own
+B / N scenes (the JAX step syncs none across devices), and each step then
+averages the gradients, the batch norms' running statistics and the log
+vars over the ranks (``train/loop.py:train_step``).  The val split is
+shared out the same way without the drop and scored on rank 0.  Only
+rank 0 logs and writes checkpoints; every rank reads ``--load-from`` and
+``--resume-from``.
 """
 
 from __future__ import annotations
@@ -90,6 +99,7 @@ from cnrma_torch.core.builder import build_dataset, build_model
 from cnrma_torch.core.config import Config
 from cnrma_torch.data.loader import SceneLoader
 from cnrma_torch.parallel import dist
+from cnrma_torch.tools._common import no_tf32
 from cnrma_torch.tools.test import load_parameters, reader_workers
 from cnrma_torch.train.loop import evaluate_split, run_training
 from cnrma_torch.train.optim import (
@@ -114,8 +124,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    help="cuda:0 (default) or cpu; under torchrun a rank "
                         "takes cuda:LOCAL_RANK unless this is cpu")
     p.add_argument("--batch-size", type=int, default=None,
-                   help="scenes a step over all ranks: only the world "
-                        "size (one scene a rank)")
+                   help="scenes a step over all ranks, a multiple of the "
+                        "world size (default: one scene a rank)")
     return p.parse_args(argv)
 
 
@@ -139,11 +149,13 @@ def test_twin(cfg, model: nn.Module) -> nn.Module:
     return twin
 
 
-def val_evaluator(cfg, model: nn.Module, seed: int, device, group=None
+def val_evaluator(cfg, model: nn.Module, seed: int, device, group=None,
+                  batch_size: Optional[int] = None
                   ) -> Tuple[Optional[Callable[[], Dict[str, float]]], int,
                              str]:
     """(the evaluator ``run_training`` calls, the interval in epochs, the
-    metric) of the config's ``evaluation`` over ``data.val``, each rank
+    metric) of the config's ``evaluation`` over ``data.val`` in batches of
+    ``batch_size`` scenes over all ranks (default one a rank), each rank
     reading its share of the split; no evaluator when the config has
     neither or the split cannot be built."""
     eval_cfg = cfg.get("evaluation", {}) or {}
@@ -160,7 +172,7 @@ def val_evaluator(cfg, model: nn.Module, seed: int, device, group=None
     loader = SceneLoader(dataset, shuffle=False,
                          num_workers=reader_workers(cfg),
                          rank=dist.rank(group), world_size=dist.world(group),
-                         drop_last=False)
+                         drop_last=False, batch_size=batch_size)
     twin = test_twin(cfg, model)
     return (lambda: evaluate_split(twin, loader, device, metric,
                                    group=group), interval, metric)
@@ -171,10 +183,17 @@ def main(argv: Optional[Sequence[str]] = None
     """Run the CLI; returns the per-step records of ``run_training`` and
     the path of the last checkpoint."""
     args = parse_args(argv)
+    no_tf32()
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device here "
                          "(pass --device cpu to run on the CPU)")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.batch_size is not None and (args.batch_size < 1
+                                        or args.batch_size % world):
+        raise SystemExit(f"--batch-size {args.batch_size}: a step takes a "
+                         f"multiple of the world size, {world} here, of "
+                         "scenes (the same number a rank)")
     group, rank_dev = dist.init_from_env(dev.type)
     try:
         return _train(args, group, rank_dev or dev)
@@ -185,11 +204,6 @@ def main(argv: Optional[Sequence[str]] = None
 def _train(args, group, dev: torch.device
            ) -> Tuple[List[Dict[str, Any]], Optional[str]]:
     world = dist.world(group)
-    if args.batch_size is not None and args.batch_size != world:
-        raise SystemExit(
-            f"--batch-size {args.batch_size}: a step takes one scene a "
-            f"rank, {world} here; more than one scene a batch on one card "
-            "is the next slice (ROADMAP queue 1 item 1)")
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_options(dict(kv.split("=", 1)
@@ -203,7 +217,8 @@ def _train(args, group, dev: torch.device
     dataset = build_dataset(cfg, "train", seed=args.seed)
     loader = SceneLoader(dataset, seed=args.seed,
                          num_workers=reader_workers(cfg),
-                         rank=dist.rank(group), world_size=world)
+                         rank=dist.rank(group), world_size=world,
+                         batch_size=args.batch_size)
     torch.manual_seed(args.seed)
     model = build_model(cfg, mode="train")
     load_from = args.load_from or cfg.get("load_from")
@@ -235,7 +250,7 @@ def _train(args, group, dev: torch.device
     if resume_from:
         load_checkpoint(resume_from, state)
     evaluate, eval_interval, eval_metric = val_evaluator(
-        cfg, model, args.seed, dev, group)
+        cfg, model, args.seed, dev, group, args.batch_size)
     return run_training(
         state, loader, epochs=int(cfg.get("total_epochs", 1)),
         work_dir=work_dir, device=dev, seed=args.seed,

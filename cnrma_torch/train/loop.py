@@ -164,24 +164,35 @@ def _score_val(model: torch.nn.Module, val_loader, device, losses: bool,
                uniforms: Optional[Sequence[torch.Tensor]] = None,
                group=None) -> Dict[str, float]:
     """One pass of ``model``'s test forward (eval-mode norms) over
-    ``val_loader``: the mean losses (``losses``) and the mAP (``boxes``).
-    Batch ``i``'s subsample draws from a generator seeded by its scene's
-    ``index`` (the test CLI's per-scene seed; its position where it has
-    none), or ``uniforms[i]`` where given.  With a process ``group`` each
-    rank runs its shard of the split (a ``SceneLoader`` with its rank),
-    the scenes' results gather to rank 0, which scores them in scene
-    order as one process would; the other ranks return ``{}``."""
+    ``val_loader``: the mean over its batches of each batch's losses
+    (``losses``; a batch of several scenes pools them, as the JAX
+    package's ``evaluate_val`` does) and the mAP over its scenes
+    (``boxes``).  Each scene's subsample draws from a generator seeded by
+    its ``index`` (the test CLI's per-scene seed; its position in the
+    split where the batch has none), so its points do not depend on its
+    batch; ``uniforms[i]`` replaces batch ``i``'s draws where given.  With
+    a process ``group`` each rank runs its share of the split (a
+    ``SceneLoader`` with its rank), the batches' results gather to rank 0,
+    which scores them in scene order as one process would; the other
+    ranks return ``{}``."""
     device = torch.device(device)
     was_training = model.training
     model.eval()
     scenes: List[Tuple[int, Dict[str, float], List[Tuple]]] = []
+    seen = 0
     try:
         for i, batch in enumerate(val_loader):
-            index = batch.get("index", i)
             on_device = device_batch(batch, device)
+            b = next(v for v in on_device.values()
+                     if torch.is_tensor(v)).shape[0]
+            index = batch.get("index", list(range(seen, seen + b)))
+            indices = list(index) if isinstance(index, (list, tuple)) \
+                else [index]
+            seen += b
             draw = ({"uniform": uniforms[i].to(device)} if uniforms
-                    is not None else {"generator": torch.Generator(
-                        device=device).manual_seed(index)})
+                    is not None else {"generator": [torch.Generator(
+                        device=device).manual_seed(int(j))
+                        for j in indices]})
             out = model(on_device, **draw)
             found = {}
             if losses:
@@ -191,7 +202,7 @@ def _score_val(model: torch.nn.Module, val_loader, device, losses: bool,
             pairs = [_scene_boxes(out, batch, b, model.with_yaw, score_thr,
                                   iou_thr, device)
                      for b in range(out["bboxes"].shape[0])] if boxes else []
-            scenes.append((index, found, pairs))
+            scenes.append((indices[0], found, pairs))
     finally:
         model.train(was_training)
     gathered = dist.gather_to_main(scenes, group)

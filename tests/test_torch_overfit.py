@@ -2,7 +2,8 @@
 cnrma_torch.tools.overfit_full``) on the CPU: its synthetic rooms against
 the JAX tool's (``tools/overfit_full.py``, whose scene builder is numpy
 only) on one ``RandomState`` seed, equal to the last bit; and a 2-step run
-of the port's tool that ends with finite losses."""
+of the port's tool, its two rooms as one batch, that ends with finite
+losses."""
 
 import math
 
@@ -63,11 +64,11 @@ def test_build_batch_matches_the_jax_tool():
 
 
 def test_two_steps_on_the_cpu_end_with_finite_losses(capsys):
-    """``--steps 2 --device cpu`` (two views a scene): four steps, one
-    scene a step in turns; finite losses, the PASS line printed, and the
-    rule's inputs returned."""
+    """``--steps 2 --device cpu`` (two views a scene): two steps, each on
+    both rooms as one batch, as the JAX tool trains them; finite losses,
+    the PASS line printed, and the rule's inputs returned."""
     out = port_tool.run(["--steps", "2", "--views", "2", "--device", "cpu"])
-    assert out["steps"] == 4
+    assert out["steps"] == 2
     for k in ("first", "final", "first_recon", "final_recon"):
         assert math.isfinite(out[k]) and out[k] > 0, k
     assert 0.0 <= out["mAP_0.25"] <= 1.0 and out["peak_gib"] is None
