@@ -23,7 +23,8 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
      atomic instructions, are logged.
   3. volume kernel vs plain at the full_ship shape (50 views of
      [120, 160, 32], 256x256x96 voxels at 4 cm), fp32 and bf16; the
-     pixel-row reads (hits) against the distinct rows.
+     pixel-row reads (hits) against the distinct rows; its sum mode (a
+     rank's partial volume: the fp32 sum, undivided) at tolerance 0.
   4. ray-march kernel vs plain at the full_ship shape (50 views x 19,200
      rays, 38 coarse steps, a 48-sample window) on a planted ball TSDF
      and its occupancy grid: j0/has_hit equal, kept sets equal outside
@@ -116,17 +117,28 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
      two rooms at 1 and 4 workers, as phase 6b's.
   ddp. on phase 6f's scenes and dumps: the train CLI for 2 steps of
      stage 2 (500,000 points) and of stage 3 (20 views, 192x192x80,
-     fp32) in this process, then as a child under ``torchrun
-     --nproc_per_node 1`` on NCCL (``chip_smoke.py --train-child``): the
-     step-1 losses equal (bit for bit, or within 1e-5: the voxelisation's
-     atomics), each step's time and its all-reduce's, K1, K1b and K2 once
-     a step in the child; stage 2 on two ranks (gloo sharing the one
-     card; NCCL across two where there are two): the ranks' parameters
-     equal bit for bit after each step, and after step 1 those of a
-     one-process step on the mean of both scenes' gradients and
-     statistics within stated tolerances, the detector's positive count
-     and centerness sum as the group averaged them against the mean of
-     the two scenes' own; on several cards also stage 3 on a rank a card.
+     fp32) in this process, then both at once as children under
+     ``torchrun --nproc_per_node 1`` on NCCL (``chip_smoke.py
+     --train-child``): the step-1 losses equal (bit for bit, or within
+     1e-5: the voxelisation's atomics), K1, K1b and K2 once a step in the
+     child (the children share the card, so their step times are not
+     measured); stage 2 on two
+     ranks (gloo sharing the one card; NCCL across two where there are
+     two): the ranks' parameters equal bit for bit after each step, and
+     after step 1 those of a one-process step on the mean of both scenes'
+     gradients and statistics within stated tolerances, the detector's
+     positive count and centerness sum as the group averaged them against
+     the mean of the two scenes' own; then the view step on the same two
+     ranks: one stage-3 scene of 20 views split across them (K1's sum
+     mode on each rank's views at tolerance 0; the full and the
+     recon-only view-sharded step from one start, K1's sum, K1b and K2
+     once a step a rank, the ranks equal after them, each against the
+     one-process step of this process: the TSDF losses within 1e-5 and
+     the U-Net's and head's gradients within 3e-3, in the recon-only step
+     the 2D tower's within 0.05; the recon-only step with the boundary
+     planted to sum the ranks' copies must break them; seconds, peaks
+     and stage times); on several cards also stage 3 on a rank a card
+     and the view-sharded paths across cards (``phase_view_cards``).
   batch. training batches of two scenes, on phase 6f's scenes and dumps:
      the tiny fp32 step of phase 6d at two scenes on the GPU against the
      CPU at ``TRAIN_LIMITS`` (the 3D U-Net held as a group, like the
@@ -429,7 +441,8 @@ def phase_volume(dev) -> dict:
             raise AssertionError(f"volume kernel: error {err.max().item()} "
                                  f"beyond {tol_name} ({dtype})")
         ms = time_ms(lambda: bp.volume_accum_cuda(*args), dev)
-        plain_ms = time_ms(lambda: bp.volume_accum_plain(*args), dev)
+        # the plain version takes about 0.35 s a call: three timed runs
+        plain_ms = time_ms(lambda: bp.volume_accum_plain(*args), dev, reps=3)
         log(f"[volume] {str(dtype)[6:]}: mask+counts equal, max|err| "
             f"{err.max().item():.3g} (tol {tol_name}); observed voxels "
             f"{ok.float().mean().item():.4f}, max views "
@@ -445,19 +458,53 @@ def phase_volume(dev) -> dict:
     return row            # the main path's dtype (bf16) is measured last
 
 
+def phase_volume_sum(dev) -> dict:
+    """K1's sum mode (a rank's partial volume of a view-sharded scene: the
+    fp32 sum, undivided) against its plain version at tolerance 0, at the
+    full_ship shape in fp32 and bf16 features; its row (bf16, the
+    forward's dtype, last)."""
+    from cnrma_torch.ops import backproject as bp
+    row = None
+    for dtype in (torch.float32, torch.bfloat16):
+        args = volume_args(dev, dtype)
+        total, cnt, ok = bp.volume_accum_cuda(*args, write_sum=True)
+        ptotal, pcnt, pok = bp.volume_accum_plain(*args, write_sum=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(ok, pok) and torch.equal(cnt, pcnt)
+                and total.dtype == torch.float32
+                and torch.equal(total, ptotal)):
+            raise AssertionError(f"volume kernel, sum mode: differs from "
+                                 f"the plain version ({dtype})")
+        ms = time_ms(lambda: bp.volume_accum_cuda(*args, write_sum=True),
+                     dev)
+        plain_ms = time_ms(lambda: bp.volume_accum_plain(
+            *args, write_sum=True), dev, reps=3)
+        nbytes, ops, _ = volume_work(*args, cnt, write_sum=True)
+        row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                   **bound(nbytes, ops))
+        log(f"[volume sum] {str(dtype)[6:]} features: the fp32 sum and "
+            f"counts equal the plain version's bit for bit (tol 0); kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{row['bound_ms']:.4f} ms by {row['bound_by']}")
+        del args, total, cnt, ok, ptotal, pcnt, pok
+    return row
+
+
 def volume_work(proj, feats, view_valid, voxel_dim, voxel_size, origin,
-                cnt):
+                cnt, write_sum: bool = False):
     """(bytes, fp32 operations, distinct pixel rows reached) of the volume
     function on these inputs.
     Bytes: the feature rows some voxel reaches, the projections and view
-    flags, the volume, count and mask written.  Operations: 6 per voxel
-    (its centre), 21 per voxel and valid view (projection: 18, one
-    reciprocal, two products), 33 per view that sees a voxel (32 channel
-    sums and the count), 32 per observed voxel (the mean)."""
+    flags, the volume (fp32 in the sum mode), count and mask written.
+    Operations: 6 per voxel (its centre), 21 per voxel and valid view
+    (projection: 18, one reciprocal, two products), 33 per view that sees
+    a voxel (32 channel sums and the count), 32 per observed voxel (the
+    mean; none in the sum mode)."""
     from cnrma_torch.ops import backproject as bp
     V, H, W, C = feats.shape
     n = cnt.numel()
     esize = feats.element_size()
+    out_size = 4 if write_sum else esize
     reached = 0
     for v in range(V):
         if not bool(view_valid[v]):
@@ -469,9 +516,9 @@ def volume_work(proj, feats, view_valid, voxel_dim, voxel_size, origin,
         reached += int(seen.sum())
     n_views = int(view_valid.sum())
     nbytes = (reached * C * esize + proj.numel() * 4 + V
-              + n * C * esize + n * 4 + n)
+              + n * C * out_size + n * 4 + n)
     ops = (6.0 * n + 21.0 * n * n_views + 33.0 * float(cnt.sum())
-           + 32.0 * int((cnt > 0).sum()))
+           + (0 if write_sum else 32.0 * int((cnt > 0).sum())))
     return nbytes, ops, reached
 
 
@@ -2399,8 +2446,6 @@ def _train_child(argv) -> int:
     rank), then writes ``{work dir}/child_rank{RANK}.json``: the launches
     of K1, K1b and K2 it made, a hash of its trained model and the CLI's
     per-step records."""
-    from cnrma_torch.ops.backproject import VOLUME_ACCUM, VOLUME_ACCUM_BWD
-    from cnrma_torch.ops.ray_marching import RAY_MARCH
     from cnrma_torch.tools import train as train_cli
     no_tf32()
     states, run = [], train_cli.run_training
@@ -2413,10 +2458,9 @@ def _train_child(argv) -> int:
     rank = os.environ.get("RANK", "0")
     with open(os.path.join(train_cli.parse_args(argv).work_dir,
                            f"child_rank{rank}.json"), "w") as f:
-        json.dump({"launches": _counts({
-            "volume_accum": VOLUME_ACCUM,
-            "volume_accum_bwd": VOLUME_ACCUM_BWD, "ray_march": RAY_MARCH}),
-            "digest": _digest(states[0].model), "records": records}, f)
+        json.dump({"launches": _counts(_kernel_counters()),
+                   "digest": _digest(states[0].model),
+                   "records": records}, f)
     return 0
 
 
@@ -2432,45 +2476,71 @@ def _child_reports(work_dir: str) -> list:
     return out
 
 
-def _world_one(root: str, tag: str, argv, counters, want: dict) -> None:
-    """The train CLI for 2 steps in this process without a group, then as
-    a child under ``torchrun`` at world size 1 on NCCL: step 1's losses
-    within ``DDP_LOSS_TOL`` (bit for bit printed), step 2's difference printed
-    (F6), each step's time and the all-reduce's; the child must launch
-    ``want``."""
-    alone = os.path.join(root, tag + "_alone")
-    recs, _, launches, _ = _run_train_cli(
-        argv + ["--work-dir", alone], counters, 2, f"ddp {tag} alone")
-    if launches != want:
-        raise AssertionError(f"[ddp {tag}] launches {launches}, not {want}")
-    group = os.path.join(root, tag + "_group")
+def _world_one(root: str, runs, counters) -> None:
+    """For each of ``runs`` (``(tag, argv, want)``): the train CLI for 2
+    steps in this process without a group; then all of them at once as
+    children under ``torchrun`` at world size 1 on NCCL, each its own
+    world on the card (their start-up, the phase's longest part, overlaps;
+    their step times share the card, so they are not measured): step 1's
+    losses within ``DDP_LOSS_TOL`` (bit for bit printed), step 2's
+    difference printed (F6), each step's time alone; each child must
+    launch its ``want``."""
+    alone = {}
+    for tag, argv, want in runs:
+        recs, _, launches, _ = _run_train_cli(
+            argv + ["--work-dir", os.path.join(root, tag + "_alone")],
+            counters, 2, f"ddp {tag} alone")
+        if launches != want:
+            raise AssertionError(f"[ddp {tag}] launches {launches}, not "
+                                 f"{want}")
+        alone[tag] = recs
     gc.collect()
-    torch.cuda.empty_cache()            # the child needs the card's memory
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", "1", os.path.abspath(__file__),
-           "--train-child"] + argv + ["--work-dir", group]
+    torch.cuda.empty_cache()            # the children need the card's memory
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    procs = {tag: subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", os.path.abspath(__file__),
+         "--train-child"] + argv + ["--work-dir",
+                                    os.path.join(root, tag + "_group")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for tag, argv, _ in runs}
+    outs = {}
+    try:
+        for tag, proc in procs.items():
+            outs[tag] = proc.communicate(timeout=600)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"[ddp {tag}] the torchrun child failed "
-                             f"({proc.returncode}):\n{proc.stdout[-4000:]}"
-                             f"\n{proc.stderr[-4000:]}")
-    child, got = (_child_reports(group)[0][k] for k in ("launches",
-                                                        "records"))
+    for tag, _, want in runs:
+        if procs[tag].returncode != 0:
+            out, err = outs[tag]
+            raise AssertionError(f"[ddp {tag}] the torchrun child failed "
+                                 f"({procs[tag].returncode}):\n{out[-4000:]}"
+                                 f"\n{err[-4000:]}")
+        _check_world_one(tag, alone[tag], _child_reports(
+            os.path.join(root, tag + "_group"))[0], want, wall)
+
+
+def _check_world_one(tag: str, recs, child: dict, want: dict,
+                     wall: float) -> None:
+    """A ``_world_one`` child's report against its in-process run."""
+    launches, got = child["launches"], child["records"]
     log(f"[ddp {tag}] torchrun --nproc_per_node 1 (NCCL, world size 1): "
-        f"{len(got)} steps, the child's wall {wall:.1f} s; launches {child}")
-    if child != want or len(got) != 2:
+        f"{len(got)} steps, the children's wall {wall:.1f} s; launches "
+        f"{launches}")
+    if launches != want or len(got) != 2:
         raise AssertionError(f"[ddp {tag}] the child must take 2 steps and "
-                             f"launch {want}: {child}")
+                             f"launch {want}: {launches}")
     for a, b in zip(recs, got):
         rel = {k: abs(b["log_vars"][k] - v) / max(abs(v), 1e-30)
                for k, v in a["log_vars"].items()}
-        log(f"[ddp {tag}] step {a['step']}: {a['step_s']:.3f} s alone, "
-            f"{b['step_s']:.3f} s in the group (all-reduce "
-            f"{b['stages_ms'].get('all_reduce', float('nan')):.1f} ms, "
-            f"peak {b['peak_gib'] or 0:.2f} GiB); largest relative loss "
-            f"difference {max(rel.values()):.3g} ({card()})")
+        log(f"[ddp {tag}] step {a['step']}: {a['step_s']:.3f} s alone "
+            f"(in the group not measured: the children share the card); "
+            f"largest relative loss difference {max(rel.values()):.3g} "
+            f"({card()})")
     losses = {k: v for k, v in recs[0]["log_vars"].items() if "loss" in k}
     same = {k: got[0]["log_vars"][k] for k in losses} == losses
     worst = max(abs(got[0]["log_vars"][k] - v) / max(abs(v), 1e-30)
@@ -2486,11 +2556,11 @@ def _world_one(root: str, tag: str, argv, counters, want: dict) -> None:
         raise AssertionError(f"[ddp {tag}] a log var is not finite")
 
 
-def _world_n(root: str, tag: str, argv, n: int, want: dict) -> None:
+def _world_n(root: str, tag: str, argv, n: int, want: dict) -> list:
     """The train CLI for 2 steps as ``torchrun --nproc_per_node n`` on
     NCCL, one card a rank: every rank ends with the same parameters and
     statistics (a hash of each), each launches ``want``; rank 0's step
-    and all-reduce times."""
+    and all-reduce times.  Returns rank 0's records."""
     wd = os.path.join(root, f"{tag}_world{n}")
     gc.collect()
     torch.cuda.empty_cache()
@@ -2511,17 +2581,22 @@ def _world_n(root: str, tag: str, argv, n: int, want: dict) -> None:
     log(f"[ddp {tag}] torchrun --nproc_per_node {n} (NCCL, a card a rank): "
         f"{len(recs)} steps in the child's wall {wall:.1f} s; launches "
         f"{launches}; ranks' hashes equal {len(set(digests)) == 1}"
-        f" ({len(digests)} ranks)")
+        f" ({len(digests)} ranks); each rank's peak "
+        + ", ".join(f"{max(x['peak_gib'] or 0 for x in r['records']):.2f}"
+                    for r in reports) + " GiB")
     for r in recs:
         log(f"[ddp {tag}] world {n} step {r['step']}: {r['step_s']:.3f} s, "
             f"all-reduce {r['stages_ms'].get('all_reduce', float('nan')):.1f}"
             f" ms, waited {r['wait_s']:.3f} s, peak {r['peak_gib'] or 0:.2f} "
-            f"GiB; total loss {r['log_vars']['total_loss']:.4f} ({card()})")
+            f"GiB; total loss {r['log_vars']['total_loss']:.4f}; stages ms "
+            + ", ".join(f"{k} {v:.1f}" for k, v in r["stages_ms"].items())
+            + f" ({card()})")
     if len(digests) != n or len(set(digests)) != 1 \
             or len(recs) != 2 or any(c != want for c in launches) \
             or len(launches) != n:
         raise AssertionError(f"[ddp {tag}] {n} ranks must take 2 steps, "
                              f"launch {want} each and end equal")
+    return recs
 
 
 def _free_port() -> int:
@@ -2556,14 +2631,17 @@ def _stage2_trainer(cfg, dev):
 
 
 def _ddp_rank(rank: int, port: int, out: str, opts,
-              device_type: str = "cuda", cards: int = 1) -> None:
+              device_type: str = "cuda", cards: int = 1,
+              view_opts=None) -> None:
     """Rank ``rank`` of two, under gloo on one card (``cards`` 1; NCCL
     refuses two ranks on one device) or NCCL on a card each: two data-parallel
     stage-2 steps, one scene a rank; rank 0 also takes the one-process
     step on the mean of both scenes' gradients and statistics and holds
     it against its own after step 1, and holds the detector's positive
     count and centerness sum that the group averaged against the mean of
-    the scenes' own.  Writes ``{out}/rank{rank}.json``."""
+    the scenes' own.  With ``view_opts`` (a stage-3 split), then the
+    view-sharded step of one scene on the two ranks (``_view_step``).
+    Writes ``{out}/rank{rank}.json``."""
     import types
     from cnrma_torch.core.builder import build_dataset
     from cnrma_torch.core.config import Config
@@ -2615,6 +2693,12 @@ def _ddp_rank(rank: int, port: int, out: str, opts,
                 cfg, dev, model, [on_device, loop.device_batch(other, dev)],
                 seen[-1].cpu())
     fcaf3d.dist = real
+    if view_opts is not None:
+        del model, opt, on_device, batches
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        report["view"] = _view_step(rank, group, dev, view_opts, out)
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(report, f)
     dist.shutdown(group)
@@ -2695,24 +2779,480 @@ def _mean_reference(cfg, dev, model, batches, group_mean) -> dict:
             "counts_err": counts_err}
 
 
-def _two_ranks(root: str, opts, device_type: str = "cuda") -> None:
+# --- one scene split across ranks (the view-sharded step) ------------------
+
+# The view-sharded stage-3 step on the card against the one-process step on
+# the same scene, parameters and draws, each from the same start.  The full
+# step: its TSDF losses (relative) and the U-Net's and TSDF head's
+# gradients (each group as one vector, relative L2), which the detector
+# does not reach (its gradient enters the 2D tower through the points, not
+# the U-Net or the head).  The untrained detector's losses, the tower's
+# gradients and the detector's input are logged, not held: on the card the
+# per-view slots of kept samples reorder under ulp-level changes and the
+# subsample follows the slots, so a one-process step on images one ulp off
+# takes 163,032 other points of 500,000 and moves the tower's groups by
+# 1.25 (PERF.md, PR 15).  The recon-only step (the detection losses
+# weighted 0, so no gradient reaches the tower through the points) holds
+# the tower's groups as well, at their own limit: the tower's gradient
+# from the TSDF losses alone comes back through the U-Net's and the
+# tower's train-mode norms, and one ulp of the images moves it by about
+# as much as the split does (the ``ulp`` reading, logged).  The same
+# recon-only step with the boundary planted to sum the n copies
+# (``_sum_copies``) must break a limit.
+VIEW_TSDF_TOL = 1e-5        # the TSDF losses, relative (measured 3.8e-7)
+VIEW_GROUP_TOL = 3e-3       # the U-Net and head (measured 5.8e-4, 1.7e-6)
+VIEW_TOWER_TOL = 0.05       # the tower's groups, recon-only (1.5e-2)
+VIEW_HELD = ("backbone3d.", "tsdf_head.")
+VIEW_GROUPS = TOWER_GROUPS + VIEW_HELD + ("detector.",)
+# what the children of the ddp phase's two ranks report of their view step
+VIEW_REPORT = {}
+
+
+def _grads_cpu(model) -> dict:
+    return {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+            .detach().float().cpu() for n, p in model.named_parameters()}
+
+
+def _view_readings(got: dict, want: dict) -> dict:
+    """A step's losses, gradient groups and leaves, and the detector's
+    input, ``got`` against the one-process ``want``: each loss's relative
+    difference, the largest of the TSDF losses', each group's relative L2
+    error, the worst leaf cosine with its name, and ``_cloud_diff``; in
+    float64 on the card where there is one (on the host's CPU four
+    readings of the stage-3 model's gradients took tens of seconds)."""
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    mine, ref = ({k: v.to(dev, torch.float64).ravel() for k, v in
+                  g["grads"].items()} for g in (got, want))
+
+    def cos(a, b):
+        na, nb = float(a.norm()), float(b.norm())
+        return float(na == nb) if na == 0 or nb == 0 else \
+            float(a @ b) / (na * nb)
+    losses = {k: abs(got["losses"][k] - w) / max(abs(w), 1e-30)
+              for k, w in want["losses"].items()}
+    groups = {}
+    for prefix in VIEW_GROUPS:
+        keys = [k for k in ref if k.startswith(prefix)]
+        a = torch.cat([mine[k] for k in keys])
+        b = torch.cat([ref[k] for k in keys])
+        groups[prefix] = float((a - b).norm() / b.norm().clamp_min(1e-30))
+    return {"losses": losses,
+            "tsdf": max(v for k, v in losses.items()
+                        if k.startswith("tsdf_loss")),
+            "groups": groups,
+            "leaf_cos": min((cos(mine[k], w), k) for k, w in ref.items()),
+            "points": _cloud_diff(*([t.to(dev) for t in g["points"]]
+                                    for g in (got, want)))}
+
+
+def _view_failures(r: dict, groups) -> list:
+    """What of the readings ``r`` breaks its limit: the TSDF losses and
+    each of ``groups``."""
+    out = ["tsdf losses"] if r["tsdf"] > VIEW_TSDF_TOL else []
+    return out + [p for p in groups if r["groups"][p] > (
+        VIEW_TOWER_TOL if p in TOWER_GROUPS else VIEW_GROUP_TOL)]
+
+
+def _cloud_diff(got, want) -> dict:
+    """Two detector inputs (xyz [P, 3], features [P, C], valid [P]) as
+    sets of points (their slots differ where a kept point comes or goes,
+    F6): the valid counts, the points in one and not the other (positions
+    on a 0.1 mm lattice), and the largest feature difference of the
+    points in both, of the features' largest magnitude."""
+    def keyed(x, f, v):
+        k = torch.round(x[v].double() * 1e4).long() + (1 << 20)
+        k = (k[:, 0] << 42) | (k[:, 1] << 21) | k[:, 2]
+        order = torch.argsort(k)
+        return k[order], f[v][order]
+    (gk, gf), (wk, wf) = keyed(*got), keyed(*want)
+    common = torch.isin(gk, wk)
+    at = torch.searchsorted(wk, gk[common])
+    err = ((gf[common] - wf[at]).abs().max() / wf.abs().max().clamp_min(
+        1e-30)) if bool(common.any()) else torch.zeros(())
+    return {"valid": [len(gk), len(wk)],
+            "differ": int((~common).sum()) + int((~torch.isin(wk, gk)).sum()),
+            "feats": float(err)}
+
+
+def _view_batch(opts, dev):
+    """The stage-3 config of ``opts`` and the first scene of its training
+    split (seed 0), on ``dev``: what the view step and its one-process
+    reference take."""
+    from cnrma_torch.core.builder import build_dataset
+    from cnrma_torch.core.config import Config
+    from cnrma_torch.data.loader import SceneLoader
+    from cnrma_torch.train import loop
+    cfg = Config.fromfile(CLI_CONFIG)
+    cfg.merge_from_options(dict(kv.split("=", 1) for kv in opts))
+    return cfg, loop.device_batch(next(iter(SceneLoader(
+        build_dataset(cfg, "train", seed=0), seed=0, num_workers=4))), dev)
+
+
+def _view_once(dev, m, o, data, start, recon_only=False, **kw) -> dict:
+    """One training step of model ``m`` (optimizer ``o``) on ``data`` from
+    the state ``start`` with row 0's step-1 draws; ``recon_only`` weights
+    the detection losses 0.  Its seconds, peak GiB, stage times, losses,
+    gradients (on the host) and the detector's input."""
+    from cnrma_torch.timing import stage_marks
+    from cnrma_torch.train import loop
+    cuda = dev.type == "cuda"
+    m.load_state_dict(start)
+    weight, seen = m.loss_weight_detection, []
+    m.loss_weight_detection = 0.0 if recon_only else weight
+    hook = m.detector.register_forward_pre_hook(
+        lambda mod, inputs: seen.append(
+            [t[0].detach().cpu() for t in inputs[:3]]))
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        with stage_marks(dev) as marks:
+            logs = loop.train_step(m, o, data, loop.step_generator(
+                0, 0, dev, 0), **kw)
+        if cuda:
+            torch.cuda.synchronize(dev)
+    finally:
+        hook.remove()
+        m.loss_weight_detection = weight
+    return {"s": time.perf_counter() - t0, "stages_ms": marks.ms(),
+            "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                         if cuda else 0.0),
+            "losses": {name: float(v) for name, v in logs.items()
+                       if "loss" in name},
+            "grads": _grads_cpu(m), "points": seen[0]}
+
+
+def _view_pair(dev, m, o, data, **kw) -> dict:
+    """The full step and the recon-only step (``_view_once``) of ``m``,
+    each from ``m``'s state now."""
+    start = {k: v.detach().clone() for k, v in m.state_dict().items()}
+    return {"full": _view_once(dev, m, o, data, start, **kw),
+            "recon": _view_once(dev, m, o, data, start, True, **kw),
+            "start": start}
+
+
+def _view_reference(dev, opts) -> dict:
+    """In this process (its cuDNN warm from the phase's stage-3 runs): the
+    full and the recon-only one-process step of a fresh stage-3 model
+    (seed 0) on the view step's scene, each from that start, and the
+    recon-only step on the images moved by one ulp (``ulp``)."""
+    cfg, batch = _view_batch(opts, dev)
+    model, opt = _stage2_trainer(cfg, dev)
+    ref = _view_pair(dev, model, opt, batch)
+    nudged = dict(batch, imgs=torch.nextafter(
+        batch["imgs"], torch.full_like(batch["imgs"], 1e9)))
+    ref["ulp"] = _view_once(dev, model, opt, nudged, ref.pop("start"), True)
+    del model, opt, batch, nudged
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return ref
+
+
+def _sum_copies():
+    """The planted fault of the view step: the replicated boundary's
+    backward sums the n ranks' copies of the cotangent (all-reduce) before
+    it keeps the rank's slice.  Returns the undo."""
+    from cnrma_torch.parallel import shard
+    real = shard.gather_replicated
+
+    class SumCopies(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, dim, group):
+            ctx.meta = (dim, torch.distributed.get_rank(group), x.shape[dim],
+                        group)
+            return shard.gather_cat(x, dim, group)
+
+        @staticmethod
+        def backward(ctx, g):
+            dim, r, size, group = ctx.meta
+            g = shard.all_reduce_sum(g.contiguous().clone(), group)
+            return g.narrow(dim, r * size, size), None, None
+    shard.gather_replicated = lambda x, dim, group: SumCopies.apply(
+        x, dim, group)
+    return lambda: setattr(shard, "gather_replicated", real)
+
+
+def _view_step(rank: int, group, dev, opts, out: str) -> dict:
+    """Rank ``rank`` of a view group of two (gloo sharing one card, or
+    NCCL on two), on the first scene of the stage-3 split ``opts`` gives
+    (``DDP_STAGE3_VIEWS`` views, 192x192x80, the config's widths): K1's sum
+    mode on the rank's block of the views (random fp32 features) against
+    its plain version at tolerance 0; the full and the recon-only
+    view-sharded step of a fresh model from one start (``train_step`` with
+    ``shards``), K1, K1's sum mode, K1b and K2 counted from 0 over them;
+    then the recon-only step with ``_sum_copies`` planted.  Rank 0 writes
+    the three steps' losses, gradients and detector inputs to
+    ``{out}/view_steps.pt`` for ``_check_view_ranks``.  Returns the
+    report."""
+    from cnrma_torch.ops import backproject as bp
+    from cnrma_torch.parallel import dist
+    cfg, batch = _view_batch(opts, dev)
+    shards = dist.view_shards(group, 2)
+    model, opt = _stage2_trainer(cfg, dev)
+    V, H, W = batch["imgs"].shape[1:4]
+    vs, stride = V // 2, model.backbone2d_stride
+    mine = slice(rank * vs, (rank + 1) * vs)
+    feats = torch.randn(vs, H // stride, W // stride, 32, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            rank))
+    args = (model._scaled_projections(batch["projection"][0, mine]), feats,
+            batch["view_valid"][0, mine], model.voxel_dim, model.voxel_size,
+            model.origin)
+    total, cnt, _ = bp.volume_accum(*args, write_sum=True)
+    ptotal, pcnt, _ = bp.volume_accum_plain(*args, write_sum=True)
+    report = {"views": V, "sum_equal": bool(torch.equal(total, ptotal)
+                                            and torch.equal(cnt, pcnt))}
+    del args, feats, total, cnt, ptotal, pcnt
+    counters = _kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    steps = _view_pair(dev, model, opt, batch, group=group, shards=shards)
+    report["launches"] = _counts(counters)
+    report["digest"] = _digest(model)
+    undo = _sum_copies()
+    try:
+        steps["fault"] = _view_once(dev, model, opt, batch, steps.pop(
+            "start"), True, group=group, shards=shards)
+    finally:
+        undo()
+    report.update({k: {"s": v["s"], "peak_gib": v["peak_gib"],
+                       "stages_ms": v["stages_ms"], "losses": v["losses"]}
+                   for k, v in steps.items()})
+    if rank == 0:
+        torch.save(steps, os.path.join(out, "view_steps.pt"))
+    return report
+
+
+def _check_view_ranks(ranks: list, how: str, reference: dict,
+                      got: dict) -> None:
+    """The two ranks' view steps (``_view_step``): K1's sum mode equal to
+    its plain version, the steps' launches, the ranks' models equal after
+    them, the full and the recon-only step (``got``) against the
+    one-process ones of ``_view_reference`` within the VIEW limits, and the
+    planted fault beyond them; logs seconds, peaks and stage times beside
+    the one-process steps'."""
+    views = [r["view"] for r in ranks]
+    v0 = views[0]
+
+    def peak(r):
+        return max(r["full"]["peak_gib"], r["recon"]["peak_gib"])
+    log(f"[view] K1's sum mode on each rank's {v0['views'] // 2} views "
+        f"(fp32 features, 192x192x80) against its plain version: equal bit "
+        f"for bit {[v['sum_equal'] for v in views]} (tol 0)")
+    log(f"[view] stage 3, {v0['views']} views of one scene on two ranks "
+        f"({how}): the full step (the first) {v0['full']['s']:.3f} s, the "
+        f"recon-only step {v0['recon']['s']:.3f} s (rank 0), peak "
+        + ", ".join(f"{peak(v):.2f}" for v in views)
+        + f" GiB (each rank's own); the one-process steps on the same scene "
+        f"{reference['full']['s']:.3f} and {reference['recon']['s']:.3f} s, "
+        f"peak {peak(reference):.2f} GiB ({card()})")
+    log(f"[view] launches in the two view-sharded steps, each rank: "
+        f"{[v['launches'] for v in views]}; ranks equal after them "
+        f"{views[0]['digest'] == views[1]['digest']}")
+    readings = {k: _view_readings(got[k], reference[
+        "full" if k == "full" else "recon"])
+        for k in ("full", "recon", "fault")}
+    readings["ulp"] = _view_readings(reference["ulp"], reference["recon"])
+    held = {"full": VIEW_HELD, "recon": TOWER_GROUPS + VIEW_HELD,
+            "fault": TOWER_GROUPS + VIEW_HELD, "ulp": ()}
+    fails = {k: _view_failures(r, held[k]) for k, r in readings.items()}
+    for k, what in (("full", "the full view-sharded step"),
+                    ("recon", "the recon-only view-sharded step"),
+                    ("fault", "the recon-only step, boundary summing the "
+                              "copies (planted)"),
+                    ("ulp", "the recon-only one-process step on images one "
+                            "ulp off")):
+        x = readings[k]
+        log(f"[view] {what} against the one-process step: TSDF losses "
+            f"{x['tsdf']:.3g} relative, groups (relative L2) "
+            + ", ".join(f"{p} {e:.3g}" for p, e in x["groups"].items())
+            + f"; held: {', '.join(held[k])}; breaks {fails[k] or 'none'}; "
+            f"other losses "
+            + ", ".join(f"{n} {e:.3g}" for n, e in x["losses"].items()
+                        if not n.startswith("tsdf_loss"))
+            + f"; worst leaf cosine {x['leaf_cos'][0]:.6f} "
+            f"({x['leaf_cos'][1]}); the detector's input {x['points']}")
+    log(f"[view] limits: TSDF losses {VIEW_TSDF_TOL}, the U-Net and head "
+        f"{VIEW_GROUP_TOL}, the tower {VIEW_TOWER_TOL}; losses "
+        f"{v0['full']['losses']} against {reference['full']['losses']}")
+    log("[view] stage ms of the recon-only step, view-sharded (rank 0): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in v0["recon"]["stages_ms"]
+                    .items())
+        + "; one-process: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in reference["recon"]["stages_ms"]
+            .items()))
+    want = {"volume_accum": 0, "volume_accum_sum": 2,
+            "volume_accum_bwd": 2, "ray_march": 2}
+    if not all(v["sum_equal"] for v in views):
+        raise AssertionError("[view] K1's sum mode differs from its plain "
+                             "version")
+    if any(v["launches"] != want for v in views):
+        raise AssertionError(f"[view] each rank must launch {want}")
+    if views[0]["digest"] != views[1]["digest"]:
+        raise AssertionError("[view] the ranks' models differ")
+    if fails["full"] or fails["recon"]:
+        raise AssertionError(f"[view] the view-sharded step is not the "
+                             f"one-process step: {fails}")
+    if not fails["fault"]:
+        raise AssertionError("[view] the planted boundary fault passes the "
+                             "view step's limits")
+    VIEW_REPORT.update(launches=v0["launches"])
+
+
+def _view_cards(root: str, data: str, ann: str, cards: int,
+                counters: dict) -> None:
+    """One scene across cards (NCCL, a card a rank): the train CLI with
+    ``--view-shards 2`` at the config's 40 views for 2 steps (each rank's
+    seconds and peak), step 1's TSDF losses within ``VIEW_TSDF_TOL`` of
+    the same CLI's on one card in this process; with four cards
+    ``--view-shards 2`` at world 4 and two scenes a step (2 data rows x 2
+    view ranks, 40 views a scene, which one card cannot hold); the test
+    CLI's ``--view-shard`` over the cards
+    against the one-card CLI on the same two scenes at the test width
+    (forward seconds a scene, TSDFs within ``VIEW_CLI_TOL``)."""
+    s3 = ["--max-steps", "2", "--cfg-options", f"data.train.data_root={data}",
+          f"data.train.ann_file={ann}", "evaluation=None",
+          "log_config.interval=1"]
+    want = {"volume_accum": 0, "volume_accum_sum": 2, "volume_accum_bwd": 2,
+            "ray_march": 2}
+    one, _, _, _ = _run_train_cli(
+        [CLI_CONFIG, "--work-dir", os.path.join(root, "view_40_one")] + s3,
+        counters, 2, "view 40 one card")
+    got = _world_n(root, "view 40", [CLI_CONFIG, "--view-shards", "2"] + s3,
+                   2, want)
+    tsdf = {k: (abs(got[0]["log_vars"][k] - v) / max(abs(v), 1e-30))
+            for k, v in one[0]["log_vars"].items()
+            if k.startswith("tsdf_loss")}
+    log(f"[view] 40 views, step 1's TSDF losses on two cards against one "
+        f"card, relative: {tsdf} (tol {VIEW_TSDF_TOL})")
+    if not tsdf or max(tsdf.values()) > VIEW_TSDF_TOL:
+        raise AssertionError("[view] the 40-view step on two cards is not "
+                             "the one-card step")
+    if cards >= 4:
+        _world_n(root, "view 2x2", [CLI_CONFIG, "--view-shards", "2",
+                                    "--batch-size", "2"] + s3, 4, want)
+    _view_test_cli(root, data, ann, cards)
+
+
+VIEW_CLI_TOL = 1e-4         # the --view-shard test CLI's TSDF, absolute
+
+
+def _view_test_cli(root: str, data: str, ann: str, cards: int) -> None:
+    """The test CLI on two scenes at the config's test width in this
+    process (one card), then under ``torchrun --nproc_per_node cards``
+    with ``--view-shard``: forward seconds a scene of each, the TSDFs."""
+    from cnrma_torch.core.builder import build_model
+    from cnrma_torch.core.config import Config
+    from cnrma_torch.tools import test as test_cli
+    cfg = Config.fromfile(CLI_CONFIG)
+    torch.manual_seed(0)
+    ckpt = os.path.join(root, "view_init.pt")
+    torch.save(build_model(cfg).state_dict(), ckpt)
+    opts = ["--max-scenes", "2", "--cfg-options",
+            f"data.test.data_root={data}", f"data.test.ann_file={ann}"]
+    one = os.path.join(root, "view_one")
+    records = test_cli.main([CLI_CONFIG, ckpt, "--save-path", one] + opts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    many = os.path.join(root, "view_many")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(cards), "-m", "cnrma_torch.tools.test",
+           CLI_CONFIG, ckpt, "--view-shard", "--save-path", many] + opts
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"[view] the --view-shard test CLI failed "
+                             f"({proc.returncode}):\n{proc.stdout[-4000:]}"
+                             f"\n{proc.stderr[-4000:]}")
+    shared = [float(m) for m in re.findall(r"forward ([0-9.]+) s",
+                                           proc.stdout)]
+    err = 0.0
+    for rec in records:
+        scene = rec["scene"]
+        with np.load(os.path.join(one, scene, scene + ".npz")) as a, \
+                np.load(os.path.join(many, scene, scene + ".npz")) as b:
+            err = max(err, float(np.abs(a["tsdf"] - b["tsdf"]).max()))
+    log(f"[view] test CLI, 50 views at the test width: forward seconds a "
+        f"scene on one card {[round(r['forward_s'], 3) for r in records]}, "
+        f"with --view-shard over {cards} cards {shared}; TSDFs "
+        f"{err:.3g} apart (tol {VIEW_CLI_TOL}) ({card()})")
+    if len(shared) != len(records) or err > VIEW_CLI_TOL:
+        raise AssertionError("[view] the --view-shard test CLI's scenes "
+                             "differ from one card's")
+
+
+def phase_view_cards() -> None:
+    """``_view_cards`` alone on a machine with several cards, on two
+    synthetic scenes of 60 frames written under ``build/``: ``python3 -c
+    "import chip_smoke as c; c.phase_view_cards()"``."""
+    from cnrma_torch.synthetic import write_scannet
+    phase_device()
+    phase_build()
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        raise SystemExit("phase_view_cards needs two or more cards")
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="view_", dir="build")
+    try:
+        data = os.path.join(root, "data")
+        ann = write_scannet(data, n_scenes=2, n_frames=60,
+                            ann_name="scannet_infos_train.pkl")
+        _view_cards(root, data, ann, cards, _kernel_counters())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_two_ranks() -> None:
+    """The ``ddp`` phase's two ranks alone (``_two_ranks``: stage 2, then
+    the view step), on two synthetic scenes of 60 frames and their point
+    dumps written under ``build/``: ``python3 -c "import chip_smoke as c;
+    c.phase_two_ranks()"``."""
+    from cnrma_torch.synthetic import write_point_dumps, write_scannet
+    phase_device()
+    phase_build()
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="ranks_", dir="build")
+    try:
+        data = os.path.join(root, "data")
+        ann = write_scannet(data, n_scenes=2, n_frames=60,
+                            ann_name="scannet_infos_train.pkl")
+        syn = os.path.join(data, "middle_points")
+        write_point_dumps(data, syn, n_points=600000)
+        _two_ranks(root, [f"data.train.data_root={data}",
+                          f"data.train.ann_file={ann}",
+                          f"data.train.points_dir={syn}", "evaluation=None",
+                          "log_config.interval=1"], view_opts=[
+            f"data.train.data_root={data}", f"data.train.ann_file={ann}",
+            f"data.train.num_frames={DDP_STAGE3_VIEWS}"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _two_ranks(root: str, opts, device_type: str = "cuda",
+               view_opts=None) -> None:
     """Stage 2 at full width on two ranks (``_ddp_rank``): gloo sharing
     the one card, or NCCL across two where the machine has two or more;
     after each step the ranks' parameters and
     statistics are equal bit for bit, and after step 1 they are the
     one-process mean step's within ``DDP_GRAD_TOL``, ``DDP_STATS_TOL``
     and ``DDP_PARAM_SHARE``, the group's positive count and centerness
-    sum the scenes' own mean's within ``DDP_COUNTS_TOL``."""
+    sum the scenes' own mean's within ``DDP_COUNTS_TOL``.  With
+    ``view_opts``, then one scene of that stage-3 split on the two ranks
+    (``_view_step``, ``_check_view_ranks``)."""
     cards = min(2, torch.cuda.device_count()) if device_type == "cuda" \
         else 1
     how = ("NCCL, a card each" if cards > 1 else "gloo, sharing one card"
            if device_type == "cuda" else "gloo on the CPU")
     out = os.path.join(root, "two_ranks")
     os.makedirs(out)
+    reference = (_view_reference(torch.device(device_type, 0), view_opts)
+                 if view_opts is not None else None)
     import torch.multiprocessing as mp
     t0 = time.perf_counter()
     ctx = mp.start_processes(
-        _ddp_rank, args=(_free_port(), out, opts, device_type, cards),
+        _ddp_rank, args=(_free_port(), out, opts, device_type, cards,
+                         view_opts),
         nprocs=2, join=False,
         start_method="spawn")
     deadline = time.monotonic() + 600
@@ -2762,6 +3302,19 @@ def _two_ranks(root: str, opts, device_type: str = "cuda") -> None:
             and ref["counts_err"] <= DDP_COUNTS_TOL):
         raise AssertionError(f"[ddp two ranks] the ranks' step is not the "
                              f"one-process mean step: {ref}")
+    if view_opts is not None:
+        got = torch.load(os.path.join(out, "view_steps.pt"),
+                         weights_only=False)
+        _check_view_ranks(ranks, how, reference, got)
+
+
+def _kernel_counters() -> dict:
+    """The launch counters of the training path's kernels by name."""
+    from cnrma_torch.ops.backproject import (
+        VOLUME_ACCUM, VOLUME_ACCUM_BWD, VOLUME_ACCUM_SUM)
+    from cnrma_torch.ops.ray_marching import RAY_MARCH
+    return {"volume_accum": VOLUME_ACCUM, "volume_accum_sum": VOLUME_ACCUM_SUM,
+            "volume_accum_bwd": VOLUME_ACCUM_BWD, "ray_march": RAY_MARCH}
 
 
 def phase_ddp(dev, root: str, data: str, ann: str, syn: str) -> None:
@@ -2773,27 +3326,25 @@ def phase_ddp(dev, root: str, data: str, ann: str, syn: str) -> None:
     machine with several cards, stage 3 on a rank a card; stage 2 on two
     ranks (gloo sharing one card, or NCCL on two) against the one-process
     mean step."""
-    from cnrma_torch.ops.backproject import VOLUME_ACCUM, VOLUME_ACCUM_BWD
-    from cnrma_torch.ops.ray_marching import RAY_MARCH
     t0 = time.perf_counter()
-    counters = {"volume_accum": VOLUME_ACCUM,
-                "volume_accum_bwd": VOLUME_ACCUM_BWD, "ray_march": RAY_MARCH}
+    counters = _kernel_counters()
     ddp = os.path.join(root, "ddp")
     os.makedirs(ddp)
     s2 = [f"data.train.data_root={data}", f"data.train.ann_file={ann}",
           f"data.train.points_dir={syn}", "evaluation=None",
           "log_config.interval=1"]
-    _world_one(ddp, "stage 2", [STAGE2_CONFIG, "--max-steps", "2",
-                                "--cfg-options", *s2], counters,
-               {"volume_accum": 0, "volume_accum_bwd": 0, "ray_march": 0})
-    _world_one(ddp, "stage 3", [CLI_CONFIG, "--max-steps", "2",
-                                "--cfg-options",
-                                f"data.train.data_root={data}",
-                                f"data.train.ann_file={ann}",
-                                f"data.train.num_frames={DDP_STAGE3_VIEWS}",
-                                "evaluation=None", "log_config.interval=1"],
-               counters, {"volume_accum": 2, "volume_accum_bwd": 2,
-                          "ray_march": 2})
+    _world_one(ddp, [
+        ("stage 2", [STAGE2_CONFIG, "--max-steps", "2", "--cfg-options",
+                     *s2],
+         {"volume_accum": 0, "volume_accum_sum": 0, "volume_accum_bwd": 0,
+          "ray_march": 0}),
+        ("stage 3", [CLI_CONFIG, "--max-steps", "2", "--cfg-options",
+                     f"data.train.data_root={data}",
+                     f"data.train.ann_file={ann}",
+                     f"data.train.num_frames={DDP_STAGE3_VIEWS}",
+                     "evaluation=None", "log_config.interval=1"],
+         {"volume_accum": 2, "volume_accum_sum": 0, "volume_accum_bwd": 2,
+          "ray_march": 2})], counters)
     cards = torch.cuda.device_count()
     if cards > 1:            # the rooms once a rank: a step an epoch
         with open(ann, "rb") as f:
@@ -2806,11 +3357,14 @@ def phase_ddp(dev, root: str, data: str, ann: str, syn: str) -> None:
                                   f"data.train.data_root={data}",
                                   f"data.train.ann_file={ranks}",
                                   "evaluation=None", "log_config.interval=1"],
-                 cards, {"volume_accum": 2, "volume_accum_bwd": 2,
-                         "ray_march": 2})
+                 cards, {"volume_accum": 2, "volume_accum_sum": 0,
+                         "volume_accum_bwd": 2, "ray_march": 2})
+        _view_cards(ddp, data, ann, cards, counters)
     gc.collect()
     torch.cuda.empty_cache()
-    _two_ranks(ddp, s2)
+    _two_ranks(ddp, s2, view_opts=[
+        f"data.train.data_root={data}", f"data.train.ann_file={ann}",
+        f"data.train.num_frames={DDP_STAGE3_VIEWS}"])
     log(f"[ddp] phase took {time.perf_counter() - t0:.1f} s ({card()})")
 
 
@@ -3520,11 +4074,12 @@ PREP_SIGN_BOUND = 0.95
 
 
 def card() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
+    """The first card's name and power limit, as nvidia-smi gives them
+    (``phase_device`` logs every card's)."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip()
+        timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def _prep_fusion(dev, cons: str, scene: str, on: str) -> None:
@@ -3886,6 +4441,8 @@ def phase_device_time(dev, rows, probe_calls, shape_calls) -> None:
     bwd = volume_bwd_args(dev, torch.float32)
     calls = [("volume_accum_kernel", lambda: bp.volume_accum_cuda(*vol),
               None),
+             ("volume_accum_kernel",
+              lambda: bp.volume_accum_cuda(*vol, write_sum=True), None),
              ("ray_march_kernel", lambda: rm.march_rays_cuda(*rays), None),
              ("volume_accum_bwd_kernel",
               lambda: bp.volume_accum_bwd_cuda(*bwd),
@@ -3918,6 +4475,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     phase_build()
     vol = phase_volume(dev)
+    vol_sum = phase_volume_sum(dev)
     ray = phase_ray_march(dev)
     launches, model, batch = phase_end_to_end(dev)
     phase_surface(dev, model, batch)
@@ -3938,6 +4496,11 @@ def main() -> None:
              source="cnrma_torch/csrc/volume_accum.cu",
              replaces="cnrma_tpu/ops/pallas_bp.py:140",
              launches=launches["volume_accum"], **vol, library_ms=None),
+        dict(name="volume_accum (sum mode)", route="cuda",
+             source="cnrma_torch/csrc/volume_accum.cu",
+             replaces="cnrma_tpu/ops/pallas_bp.py:140",
+             launches=VIEW_REPORT["launches"]["volume_accum_sum"],
+             **vol_sum, library_ms=None),
         dict(name="ray_march", route="cuda",
              source="cnrma_torch/csrc/ray_march.cu",
              replaces="cnrma_tpu/ops/pallas_ray.py:108",

@@ -16,7 +16,11 @@
 // added to an fp32 sum and one to an fp32 count, over v = 0 .. V-1 in order.
 // The mean (sum / count, 0 where count == 0) is written once in the feature
 // dtype in the [X, Y, Z, C] layout, with the count and the [X, Y, Z] valid
-// mask.  Built with --fmad=false so pixel ids agree bit for bit with the
+// mask.  In its sum mode (write_sum) the kernel writes the fp32 sum itself,
+// undivided, whatever the feature dtype: a rank's partial volume of a scene
+// whose views are split across ranks, which the caller all-reduces with the
+// count before it divides (cnrma_tpu/ops/backproject.py,
+// accumulate_views_partial and _normalize_volume).  Built with --fmad=false so pixel ids agree bit for bit with the
 // plain torch version.
 //
 // Design.  A block owns an 8x8x4 voxel tile, one thread a voxel (z fastest
@@ -113,15 +117,25 @@ __device__ __forceinline__ void store_row(__nv_bfloat16* out,
   }
 }
 
+// the undivided fp32 sum (sum mode)
+__device__ __forceinline__ void store_sum(float* out, const float* acc) {
+  float4* q = reinterpret_cast<float4*>(out);
+#pragma unroll
+  for (int i = 0; i < kC / 4; ++i)
+    q[i] = make_float4(acc[4 * i + 0], acc[4 * i + 1], acc[4 * i + 2],
+                       acc[4 * i + 3]);
+}
+
 // K1's tile
 using VolumeTile = Tile<8, 8, 4>;
 
-template <typename T>
+// Out is T (the mean) or float (the sum, kSum)
+template <typename T, bool kSum>
 __global__ void __launch_bounds__(VolumeTile::kThreads)
 volume_accum_kernel(const T* __restrict__ feats,       // [V, H, W, C]
                     const float* __restrict__ proj,    // [V, 3, 4]
                     const uint8_t* __restrict__ view_valid,  // [V]
-                    T* __restrict__ out,               // [X, Y, Z, C]
+                    void* __restrict__ out,            // [X, Y, Z, C]
                     float* __restrict__ count,         // [X, Y, Z]
                     uint8_t* __restrict__ valid,       // [X, Y, Z]
                     int V, int H, int W, Grid g) {
@@ -160,13 +174,16 @@ volume_accum_kernel(const T* __restrict__ feats,       // [V, H, W, C]
 
   if (mine) {
     const size_t vox = (static_cast<size_t>(vx) * g.Y + vy) * g.Z + vz;
-    store_row(out + vox * kC, acc, cnt);
+    if constexpr (kSum)
+      store_sum(static_cast<float*>(out) + vox * kC, acc);
+    else
+      store_row(static_cast<T*>(out) + vox * kC, acc, cnt);
     count[vox] = cnt;
     valid[vox] = cnt > 0.f;
   }
 }
 
-template <typename T>
+template <typename T, bool kSum>
 int launch(const void* feats, const void* proj, const void* view_valid,
            void* out, void* count, void* valid, int V, int H, int W,
            const Grid& g, cudaStream_t s) {
@@ -175,15 +192,26 @@ int launch(const void* feats, const void* proj, const void* view_valid,
   const size_t shmem = tile_shared_bytes<false>(V);
   if (shmem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        volume_accum_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(shmem));
+        volume_accum_kernel<T, kSum>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shmem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  volume_accum_kernel<T><<<tiles, VolumeTile::kThreads, shmem, s>>>(
+  volume_accum_kernel<T, kSum><<<tiles, VolumeTile::kThreads, shmem, s>>>(
       static_cast<const T*>(feats), static_cast<const float*>(proj),
-      static_cast<const uint8_t*>(view_valid), static_cast<T*>(out),
+      static_cast<const uint8_t*>(view_valid), out,
       static_cast<float*>(count), static_cast<uint8_t*>(valid), V, H, W, g);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_mode(const void* feats, const void* proj, const void* view_valid,
+                void* out, void* count, void* valid, int V, int H, int W,
+                const Grid& g, int write_sum, cudaStream_t s) {
+  return write_sum
+      ? launch<T, true>(feats, proj, view_valid, out, count, valid, V, H, W,
+                        g, s)
+      : launch<T, false>(feats, proj, view_valid, out, count, valid, V, H,
+                         W, g, s);
 }
 
 }  // namespace
@@ -193,15 +221,16 @@ extern "C" int cnrma_volume_accum(const void* feats, const void* proj,
                                   void* count, void* valid, int V, int H,
                                   int W, int C, int X, int Y, int Z,
                                   float voxel_size, float ox, float oy,
-                                  float oz, int is_bf16, void* stream) {
+                                  float oz, int is_bf16, int write_sum,
+                                  void* stream) {
   if (C != kC) return static_cast<int>(cudaErrorInvalidValue);
   const Grid g{X, Y, Z, voxel_size, ox, oy, oz};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16
-      ? launch<__nv_bfloat16>(feats, proj, view_valid, out, count, valid, V,
-                              H, W, g, s)
-      : launch<float>(feats, proj, view_valid, out, count, valid, V, H, W, g,
-                      s);
+      ? launch_mode<__nv_bfloat16>(feats, proj, view_valid, out, count, valid,
+                                   V, H, W, g, write_sum, s)
+      : launch_mode<float>(feats, proj, view_valid, out, count, valid, V, H,
+                           W, g, write_sum, s);
 }
 
 extern "C" const char* cnrma_error_string(int err) {

@@ -21,6 +21,14 @@ points but not the TSDF head.
 Batch layout (as in the JAX package): imgs [B, V, H, W, 3] raw RGB,
 projection [B, V, 3, 4] full-resolution, view_valid [B, V] bool,
 offset [B, 3].
+
+One scene can be split across the ranks of a view group
+(``parallel/shard.py``), as the JAX package's ``view`` mesh axis splits
+it.  In the test forward (given a ``view_group``, JAX's ``view_mesh``) each
+rank runs the 2D tower on its block of the views and the volume is
+summed over the group; the U-Net, head, march and detector run alike on
+every rank.  In training, ``forward_view_sharded`` also runs the U-Net
+and TSDF head on an X-slab a rank and marches each rank's own views.
 """
 
 from __future__ import annotations
@@ -36,9 +44,10 @@ from cnrma_torch.models.fcaf3d import DetectionCapacities, FCAF3DDetector
 from cnrma_torch.models.resnet_fpn import ResNetFPN2D
 from cnrma_torch.models.tsdf_head import TSDFHead, tsdf_losses
 from cnrma_torch.models.unet3d import UNet3D
-from cnrma_torch.ops.backproject import accumulate_views
+from cnrma_torch.ops.backproject import accumulate_views, partial_volume
 from cnrma_torch.ops.ray_marching import (
     RayMarchPoints, build_occupancy, ray_march_depth_scene, ray_march_scene)
+from cnrma_torch.parallel import dist, shard
 from cnrma_torch.timing import mark
 
 
@@ -301,68 +310,85 @@ class CNRMA(nn.Module):
     def reconstruct(self, volume: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self.tsdf_head(self.backbone3d(volume))
 
+    def _march(self, proj: torch.Tensor, tsdf: torch.Tensor,
+               view_valid: torch.Tensor, height: int, width: int,
+               view_offset: int = 0) -> RayMarchPoints:
+        """One scene's views [v] marched through its fine TSDF [X, Y, Z]
+        (NeuS: all views at once through K2; depth: view by view in
+        torch): [v, rays_per_view_cap] slots, the views' ids from
+        ``view_offset`` on."""
+        if self.ray_marching_type == "depth":
+            return ray_march_depth_scene(
+                proj, tsdf, view_valid, self.voxel_dim, self.voxel_size,
+                self.origin, height, width, n_samples=self.ray_samples,
+                depth_points=self.depth_points,
+                capacity=self.rays_per_view_cap, view_offset=view_offset)
+        use_skip = (self.ray_skip_factor > 0
+                    and self.ray_samples > self.ray_skip_window
+                    and all(n % self.ray_skip_factor == 0
+                            for n in self.voxel_dim))
+        occ = build_occupancy(tsdf, self.ray_skip_factor) if use_skip \
+            else None
+        return ray_march_scene(
+            proj, tsdf, view_valid, self.voxel_dim, self.voxel_size,
+            self.origin, height, width, n_samples=self.ray_samples,
+            weight_threshold=self.neus_threshold,
+            capacity=self.rays_per_view_cap, occupancy=occ,
+            skip_factor=self.ray_skip_factor,
+            skip_window=self.ray_skip_window,
+            coarse_step=self.ray_skip_coarse_step, view_offset=view_offset)
+
+    def _point_cloud(self, marched: RayMarchPoints, feats: torch.Tensor,
+                     generator: Optional[torch.Generator] = None,
+                     uniform: Optional[torch.Tensor] = None):
+        """One scene's point cloud from its marched views [V, cap] and
+        feature maps [V, h, w, C]: the global mean weight normalization,
+        the subsample to ``max_points``, the pixel-feature gather and the
+        weight multiply.  (xyz [P, 3], weighted features [P, C], valid
+        [P])."""
+        flat = RayMarchPoints(*(f.flatten(0, 1) for f in marched))
+        xyz, wts, uv, view, valid = _normalize_subsample(
+            flat, self.max_points, generator, uniform)
+        pf = _gather_point_feats(feats, uv, view, valid)
+        return xyz, pf * wts[:, None], valid
+
     def ray_march(self, feats: torch.Tensor, projections: torch.Tensor,
                   view_valid: torch.Tensor, tsdf: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
                   uniform: Optional[torch.Tensor] = None) -> RayPoints:
-        """All-view marching -> weighted feature point cloud: one
-        scene-level march per scene (NeuS: all views at once through K2;
-        depth: view by view in torch), global mean weight normalization,
-        subsample to ``max_points``, pixel-feature gather, weight multiply.
-        ``generator`` may be a list of one generator a scene (each scene's
-        draw then does not depend on its batch); ``uniform`` ([B, V *
-        rays_per_view_cap]) replaces the generators' draw.  An invalid view
-        emits no point (the JAX package zeroes its weights: the same kept
-        set)."""
+        """All-view marching -> weighted feature point cloud, scene by
+        scene (``_march``, then ``_point_cloud``).  ``generator`` may be a
+        list of one generator a scene (each scene's draw then does not
+        depend on its batch); ``uniform`` ([B, V * rays_per_view_cap])
+        replaces the generators' draw.  An invalid view emits no point
+        (the JAX package zeroes its weights: the same kept set)."""
         b, v, h, w, _ = feats.shape
         proj = self._scaled_projections(projections)
-        neus = self.ray_marching_type == "neus"
-        use_skip = (neus and self.ray_skip_factor > 0
-                    and self.ray_samples > self.ray_skip_window
-                    and all(n % self.ray_skip_factor == 0
-                            for n in self.voxel_dim))
         gens = (generator if isinstance(generator, (list, tuple))
                 else [generator] * b)
-        scenes = []
-        for i in range(b):
-            if neus:
-                occ = (build_occupancy(tsdf[i], self.ray_skip_factor)
-                       if use_skip else None)
-                pts = ray_march_scene(
-                    proj[i], tsdf[i], view_valid[i], self.voxel_dim,
-                    self.voxel_size, self.origin, h, w,
-                    n_samples=self.ray_samples,
-                    weight_threshold=self.neus_threshold,
-                    capacity=self.rays_per_view_cap, occupancy=occ,
-                    skip_factor=self.ray_skip_factor,
-                    skip_window=self.ray_skip_window,
-                    coarse_step=self.ray_skip_coarse_step)
-            else:
-                pts = ray_march_depth_scene(
-                    proj[i], tsdf[i], view_valid[i], self.voxel_dim,
-                    self.voxel_size, self.origin, h, w,
-                    n_samples=self.ray_samples,
-                    depth_points=self.depth_points,
-                    capacity=self.rays_per_view_cap)
-            flat = RayMarchPoints(*(f.flatten(0, 1) for f in pts))
-            scenes.append(_normalize_subsample(
-                flat, self.max_points, gens[i],
-                None if uniform is None else uniform[i]))
-        xyz, wts, uv, view, valid = (torch.stack(f) for f in zip(*scenes))
-        pf = torch.stack([_gather_point_feats(feats[i], uv[i], view[i],
-                                              valid[i]) for i in range(b)])
-        return RayPoints(xyz=xyz, feats=pf * wts[..., None], valid=valid)
+        scenes = [self._point_cloud(
+            self._march(proj[i], tsdf[i], view_valid[i], h, w), feats[i],
+            gens[i], None if uniform is None else uniform[i])
+            for i in range(b)]
+        xyz, pf, valid = (torch.stack(f) for f in zip(*scenes))
+        return RayPoints(xyz=xyz, feats=pf, valid=valid)
 
-    def reconstruct_views(self, batch: Dict[str, Any]
+    def reconstruct_views(self, batch: Dict[str, Any], view_group=None
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      Dict[str, torch.Tensor]]:
         """The 2D features, the view flags (all valid unless the batch has
-        ``view_valid``) and the per-scale TSDFs of a batch."""
+        ``view_valid``) and the per-scale TSDFs of a batch; with a
+        ``view_group`` (the test forward's view sharding, the test CLI's
+        ``--view-shard``; JAX's ``view_mesh``) its views split over the
+        group's ranks."""
         imgs = batch["imgs"]
         view_valid = batch.get("view_valid")
         if view_valid is None:
             view_valid = torch.ones(imgs.shape[:2], dtype=torch.bool,
                                     device=imgs.device)
+        if view_group is not None:
+            return self._reconstruct_view_sharded(imgs, batch["projection"],
+                                                  view_valid, view_group)
         feats = self.extract_2d(imgs)
         mark("tower")
         volume, _ = self.build_volume(feats, batch["projection"], view_valid)
@@ -370,6 +396,47 @@ class CNRMA(nn.Module):
         tsdf = self.reconstruct(volume)
         mark("unet_head")
         return feats, view_valid, tsdf
+
+    def _reconstruct_view_sharded(self, imgs: torch.Tensor,
+                                  projections: torch.Tensor,
+                                  view_valid: torch.Tensor, group):
+        """``reconstruct_views`` of one scene with its views split over
+        ``group`` (the test forward; JAX's ``view_mesh``): the views
+        padded to a multiple of the group's size with invalid copies of
+        view 0, this rank's block through the tower (eval-mode norms: a
+        view's features do not depend on the others), the volume of
+        ``partial_volume``, and the U-Net, the head and the gathered
+        feature maps of all V views alike on every rank."""
+        if self.training:
+            raise ValueError("the test forward's view sharding runs in eval "
+                             "mode; training splits a scene through "
+                             "forward_view_sharded")
+        n, r = dist.world(group), dist.rank(group)
+        b, V = imgs.shape[:2]
+        if b != 1:
+            raise ValueError("the view-sharded test forward takes one scene "
+                             f"a batch, got {b}")
+        pad = (-V) % n
+        if pad:
+            imgs = torch.cat([imgs, imgs[:, :1].expand(
+                1, pad, *imgs.shape[2:])], 1)
+            projections = torch.cat([projections, projections[:, :1].expand(
+                1, pad, 3, 4)], 1)
+            view_valid = torch.cat([view_valid, torch.zeros(
+                1, pad, dtype=torch.bool, device=view_valid.device)], 1)
+        vs = (V + pad) // n
+        mine = slice(r * vs, (r + 1) * vs)
+        feats_s = self.extract_2d(imgs[:, mine])
+        mark("tower")
+        proj = self._scaled_projections(projections[0, mine])
+        volume, _ = partial_volume(proj, feats_s[0], view_valid[0, mine],
+                                   self.voxel_dim, self.voxel_size,
+                                   self.origin, group)
+        mark("volume")
+        tsdf = self.reconstruct(volume[None])
+        mark("unet_head")
+        feats = shard.gather_cat(feats_s, 1, group)[:, :V]
+        return feats, view_valid[:, :V], tsdf
 
     def recon_losses(self, tsdf: Dict[str, torch.Tensor],
                      batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -401,13 +468,16 @@ class CNRMA(nn.Module):
     @torch.no_grad()
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None,
-                uniform: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+                uniform: Optional[torch.Tensor] = None,
+                view_group=None) -> Dict[str, Any]:
         """Test-mode forward (``generator`` one or a list of one a scene,
-        as ``ray_march`` takes it).  Returns ``tsdf`` (the per-scale TSDFs),
-        ``points`` (the detector's input cloud, offset applied) and the raw
-        per-level top-k ``bboxes``/``scores``/``bbox_valid``; with ground
-        truth in the batch also ``losses`` (``test_losses``)."""
-        feats, view_valid, tsdf = self.reconstruct_views(batch)
+        as ``ray_march`` takes it; a ``view_group`` splits the scene's
+        views over its ranks, ``reconstruct_views``).  Returns ``tsdf``
+        (the per-scale TSDFs), ``points`` (the detector's input cloud,
+        offset applied) and the raw per-level top-k
+        ``bboxes``/``scores``/``bbox_valid``; with ground truth in the
+        batch also ``losses`` (``test_losses``)."""
+        feats, view_valid, tsdf = self.reconstruct_views(batch, view_group)
         fine = tsdf[f"scene_tsdf_{self.tsdf_head.keys[-1]}"]
         pts = self.ray_march(feats, batch["projection"], view_valid, fine,
                              generator, uniform)
@@ -450,6 +520,16 @@ class CNRMA(nn.Module):
         pts = self.ray_march(feats, batch["projection"], view_valid,
                              fine.detach(), generator, uniform)
         mark("march")
+        return self._detection_losses(pts, batch, losses, generator,
+                                      aug_draws, group)
+
+    def _detection_losses(self, pts: RayPoints, batch: Dict[str, Any],
+                          losses: Dict[str, torch.Tensor],
+                          generator: Optional[torch.Generator],
+                          aug_draws, group) -> Dict[str, torch.Tensor]:
+        """The training forward's tail from the point cloud: the offset,
+        the augmentation, the detector and its losses (times
+        ``loss_weight_detection``) added to ``losses``."""
         xyz = pts.xyz + batch["offset"][:, None, :]
         gt_boxes = batch["gt_boxes"]
         if self.use_feature_transform:
@@ -467,6 +547,92 @@ class CNRMA(nn.Module):
                        for k, v in det.items()})
         return losses
 
+    def forward_view_sharded(self, batch: Dict[str, Any],
+                             shards: dist.ViewShards,
+                             generator: Optional[torch.Generator] = None,
+                             uniform: Optional[torch.Tensor] = None,
+                             aug_draws: Optional[
+                                 Sequence[Dict[str, torch.Tensor]]] = None
+                             ) -> Dict[str, torch.Tensor]:
+        """The training forward's losses of ONE scene split across the
+        ranks of ``shards.view`` (JAX ``CNRMA.forward_view_sharded``): the
+        losses of ``forward_train`` on that scene, the same on every rank
+        of the group.
+
+        * 2D tower: this rank's V/n views, the norms' statistics synced
+          over the group (``shard.bn_sync_group``), so they are the whole
+          scene's;
+        * volume: ``partial_volume`` (K1's sums, summed over the group);
+        * U-Net and TSDF head: this rank's X-slab, with halos
+          (``shard.halo_group``) and synced norms; the three TSDFs
+          gathered across the boundary (``shard.gather_replicated``) for
+          the TSDF losses, which every rank computes alike;
+        * march: this rank's views (their global ids), the per-view
+          buffers gathered in view order, which is the one-rank buffer;
+        * the subsample, the feature gather (the feature maps gathered
+          across the boundary), the augmentation and the detector, alike
+          on every rank with one ``generator`` (the data row's), the
+          positive count averaged over ``shards.data``.
+
+        The sharded modules' gradients are then partials to be summed over
+        the group, the detector's whole on every rank
+        (``train/loop.py:mean_over_ranks``).  ``Atlas`` stops after the
+        TSDF losses.  Checked: one scene a rank, V % n == 0 (equal shards
+        keep the synced statistics exact), X % n == 0 and (X / n) % 8 ==
+        0 (slabs start at even X through the three stride-2 levels)."""
+        group, n, vix = shards.view, shards.n, shards.index
+        imgs = batch["imgs"]
+        b, V = imgs.shape[:2]
+        X = self.voxel_dim[0]
+        if b != 1:
+            raise ValueError("forward_view_sharded: per-device batch must be "
+                             f"1 scene, got {b}")
+        if V % n:
+            raise ValueError(f"views ({V}) must divide the view axis ({n}) "
+                             "for joint-BN-exact sharding")
+        if X % n or (X // n) % 8:
+            raise ValueError(f"voxel X dim {X} must split into {n} slabs "
+                             "divisible by 8 (three stride-2 levels)")
+        view_valid = batch.get("view_valid")
+        if view_valid is None:
+            view_valid = torch.ones(imgs.shape[:2], dtype=torch.bool,
+                                    device=imgs.device)
+        vs = V // n
+        mine = slice(vix * vs, (vix + 1) * vs)
+        with shard.bn_sync_group(group):
+            feats_s = self.extract_2d(imgs[:, mine])          # [1, vs, ...]
+        mark("tower")
+        proj = self._scaled_projections(batch["projection"][0, mine])
+        volume, _ = partial_volume(proj, feats_s[0], view_valid[0, mine],
+                                   self.voxel_dim, self.voxel_size,
+                                   self.origin, group)
+        mark("volume")
+        xs = X // n
+        slab = volume[None, vix * xs:(vix + 1) * xs]
+        with shard.bn_sync_group(group), shard.halo_group(group):
+            tsdf_slab = self.reconstruct(slab)
+        tsdf = {k: shard.gather_replicated(t, 1, group)
+                for k, t in tsdf_slab.items()}
+        mark("unet_head")
+        losses = self.recon_losses(tsdf, batch)
+        if not self.detection:
+            return losses
+        fine = tsdf[f"scene_tsdf_{self.tsdf_head.keys[-1]}"].detach()
+        h, w = feats_s.shape[2:4]
+        with torch.no_grad():
+            mine_pts = self._march(proj, fine[0], view_valid[0, mine], h, w,
+                                   view_offset=vix * vs)
+            marched = RayMarchPoints(*(shard.gather_cat(f, 0, group)
+                                       for f in mine_pts))
+        feats = shard.gather_replicated(feats_s, 1, group)
+        xyz, pf, valid = self._point_cloud(
+            marched, feats[0], generator,
+            None if uniform is None else uniform[0])
+        pts = RayPoints(xyz=xyz[None], feats=pf[None], valid=valid[None])
+        mark("march")
+        return self._detection_losses(pts, batch, losses, generator,
+                                      aug_draws, shards.data)
+
 
 class Atlas(CNRMA):
     """The reconstruction model of stage-1 pretraining (reference
@@ -479,10 +645,12 @@ class Atlas(CNRMA):
     @torch.no_grad()
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None,
-                uniform: Optional[torch.Tensor] = None) -> Dict[str, Any]:
-        """Test-mode forward: ``tsdf``, the per-scale TSDFs, and with
-        ``tsdf_list`` in the batch their ``losses``."""
-        tsdf = self.reconstruct_views(batch)[2]
+                uniform: Optional[torch.Tensor] = None,
+                view_group=None) -> Dict[str, Any]:
+        """Test-mode forward (a ``view_group`` as ``CNRMA.forward`` takes
+        it): ``tsdf``, the per-scale TSDFs, and with ``tsdf_list`` in the
+        batch their ``losses``."""
+        tsdf = self.reconstruct_views(batch, view_group)[2]
         losses = self.test_losses(tsdf, None, batch)
         return {"tsdf": tsdf, "losses": losses} if losses else {"tsdf": tsdf}
 

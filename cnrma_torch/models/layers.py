@@ -16,6 +16,13 @@ biased variance ``E[x^2] - E[x]^2`` (clamped at 0 in the masked form), and
 update the running statistics once a forward as ``0.9 * old + 0.1 *
 batch`` with that biased variance.  In eval mode, and always when
 ``frozen`` (detectron's FrozenBatchNorm), they use the running statistics.
+
+Under the contexts of ``parallel/shard.py`` (a scene split across a view
+group, ``CNRMA.forward_view_sharded``) the dense batch norms take the
+group's statistics, the 3x3x3 convolutions run on X-slabs with halos from
+the neighbouring ranks, and the x2 linear upsample takes clamped halos
+along X: ``cnrma_tpu/models/layers.py``'s ``sync_batch_stats``,
+``ConvBN`` and ``_up2_linear_axis_halo``.
 """
 
 from __future__ import annotations
@@ -28,15 +35,18 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from cnrma_torch.parallel import shard
+
 _recompute_depth = 0
 
 
 @contextlib.contextmanager
-def _recomputing():
+def _recomputing(snap):
     global _recompute_depth
     _recompute_depth += 1
     try:
-        yield
+        with shard.restored(snap):
+            yield
     finally:
         _recompute_depth -= 1
 
@@ -46,10 +56,12 @@ def checkpoint(fn: Callable, *args):
     checkpoint``, non-reentrant; the JAX package's ``nn.remat``): the
     activations inside are recomputed in the backward.  The batch norms of
     the recompute normalize with the batch statistics again but leave the
-    running statistics alone, so these update once a step."""
+    running statistics alone, so these update once a step.  The recompute
+    runs under the sharding contexts of the forward."""
+    snap = shard.snapshot()
     return torch.utils.checkpoint.checkpoint(
         fn, *args, use_reentrant=False,
-        context_fn=lambda: (contextlib.nullcontext(), _recomputing()))
+        context_fn=lambda: (contextlib.nullcontext(), _recomputing(snap)))
 
 
 class BatchNorm(nn.Module):
@@ -88,8 +100,9 @@ class BatchNorm(nn.Module):
         if self.training and not self.frozen:
             axes = [0, *range(2, x.dim())]
             xf = x.float()
-            mean = xf.mean(dim=axes)
-            var = (xf * xf).mean(dim=axes) - mean * mean
+            mean, meansq = shard.sync_batch_stats(xf.mean(dim=axes),
+                                                  (xf * xf).mean(dim=axes))
+            var = meansq - mean * mean
             self._update(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
@@ -150,7 +163,10 @@ class MaskedInstanceNorm(nn.Module):
 class Conv(nn.Module):
     """Bias-free 2D or 3D convolution with torch's symmetric
     ``kernel_size // 2`` padding, run in the input's dtype (fp32 parameters
-    are cast)."""
+    are cast).  A 3x3x3 convolution under ``shard.halo_group`` takes its X
+    padding from the neighbouring ranks' slabs (zeros at the volume's
+    edges) and pads only Y and Z; a stride-2 window stays where the
+    unsharded convolution puts it, because slabs start at even X."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, ndim: int = 2):
@@ -158,13 +174,19 @@ class Conv(nn.Module):
         self.stride = stride
         self.padding = kernel_size // 2
         self.conv = F.conv2d if ndim == 2 else F.conv3d
+        self.halo = ndim == 3 and kernel_size == 3
         self.weight = nn.Parameter(torch.empty(
             (out_channels, in_channels) + (kernel_size,) * ndim))
         nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        group = shard.current_halo_group() if self.halo else None
+        padding = self.padding
+        if group is not None:
+            x = shard.halo_pad(x, 2, group)
+            padding = (0, self.padding, self.padding)
         return self.conv(x, self.weight.to(x.dtype), None, self.stride,
-                         self.padding)
+                         padding)
 
 
 class ConvBN(nn.Module):
@@ -194,7 +216,19 @@ def upsample_linear(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """Bi/tri-linear x``factor`` upsample with half-pixel centres and
     clamped edges (align_corners=False) over every spatial axis of
     [N, C, ...]: the JAX package's shifted-add x2 kernel, up to fp32
-    rounding (a test shows it)."""
+    rounding (a test shows it).  Under ``shard.halo_group`` a volume's X
+    axis is an X-slab: its x2 is the shifted add with halos from the
+    neighbouring ranks (clamped at the volume's edges), then Y and Z."""
     mode = "bilinear" if x.dim() == 4 else "trilinear"
-    return F.interpolate(x, scale_factor=factor, mode=mode,
+    group = (shard.current_halo_group() if x.dim() == 5 and factor == 2
+             else None)
+    if group is None:
+        return F.interpolate(x, scale_factor=factor, mode=mode,
+                             align_corners=False)
+    n, c, xs = x.shape[:3]
+    xp = shard.halo_pad(x, 2, group, clamp_edges=True)
+    lo, hi = xp.narrow(2, 0, xs), xp.narrow(2, 2, xs)
+    up = torch.stack([0.75 * x + 0.25 * lo, 0.75 * x + 0.25 * hi], dim=3)
+    up = up.reshape(n, c, 2 * xs, *x.shape[3:])
+    return F.interpolate(up, scale_factor=(1, factor, factor), mode=mode,
                          align_corners=False)

@@ -45,7 +45,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of every exported launcher; each returns cudaGetLastError().
 _SIGNATURES = {
-    "cnrma_volume_accum": [_P] * 6 + [_I] * 7 + [_F] * 4 + [_I, _P],
+    "cnrma_volume_accum": [_P] * 6 + [_I] * 7 + [_F] * 4 + [_I, _I, _P],
     "cnrma_volume_accum_bwd": [_P] * 5 + [_I] * 7 + [_F] * 4
     + [_I, _P, _P],
     "cnrma_ray_march": [_P] * 9 + [_I] * 13 + [_F] * 7 + [_P],

@@ -20,6 +20,14 @@ both devices: its backward (the JAX package's custom VJP
 before they leave as atomics) on a CUDA tensor and
 ``volume_accum_bwd_plain`` on a CPU tensor.  Projections, view flags and
 the origin get no gradient: camera geometry is data.
+
+A scene whose views are split across the ranks of a view group
+(``parallel/shard.py``) builds its volume with ``partial_volume``: each
+rank's views through K1's sum mode (the fp32 sum, undivided, and the
+count), both summed over the group, then the division of
+``_normalize_volume``; the backward gives K1b the group's count
+(``cnrma_tpu/ops/backproject.py``, ``accumulate_views_partial`` and
+``accumulate_views_view_sharded``).
 """
 
 from __future__ import annotations
@@ -29,8 +37,10 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from cnrma_torch.ops import _build
+from cnrma_torch.parallel import shard
 
 VOLUME_ACCUM = _build.LaunchCounter()
+VOLUME_ACCUM_SUM = _build.LaunchCounter()     # K1's sum mode
 VOLUME_ACCUM_BWD = _build.LaunchCounter()
 MAX_VIEWS = 1024          # the kernels keep 53-69 B per view in shared memory
 # K1b's voxel tile (csrc/volume_accum_bwd.cu, BwdTile): its pairs are
@@ -69,13 +79,15 @@ def project_voxels(projection: torch.Tensor, voxel_dim: Sequence[int],
 
 def volume_accum_plain(projections: torch.Tensor, features: torch.Tensor,
                        view_valid: torch.Tensor, voxel_dim: Sequence[int],
-                       voxel_size: float, origin: Sequence[float]
+                       voxel_size: float, origin: Sequence[float],
+                       write_sum: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain torch version of the volume kernel, on any device.
 
     Sums the views one by one in fp32 and returns (mean volume
     [X, Y, Z, C] in the feature dtype, view count [X, Y, Z] fp32, valid
-    [X, Y, Z] bool)."""
+    [X, Y, Z] bool); with ``write_sum`` the fp32 sum in place of the
+    mean."""
     V, H, W, C = features.shape
     n = voxel_dim[0] * voxel_dim[1] * voxel_dim[2]
     vol = torch.zeros(n, C, dtype=torch.float32, device=features.device)
@@ -87,9 +99,12 @@ def volume_accum_plain(projections: torch.Tensor, features: torch.Tensor,
         rows = features[v].reshape(H * W, C)[flat.reshape(-1)]
         vol += torch.where(m[:, None], rows.float(), 0.0)
         cnt += m.float()
-    denom = torch.where(cnt > 0, cnt, torch.ones_like(cnt))
-    mean = (vol / denom[:, None]).to(features.dtype)
-    return (mean.reshape(*voxel_dim, C), cnt.reshape(*voxel_dim),
+    if write_sum:
+        out = vol
+    else:
+        denom = torch.where(cnt > 0, cnt, torch.ones_like(cnt))
+        out = (vol / denom[:, None]).to(features.dtype)
+    return (out.reshape(*voxel_dim, C), cnt.reshape(*voxel_dim),
             (cnt > 0).reshape(*voxel_dim))
 
 
@@ -121,34 +136,39 @@ def _kernel_inputs(projections: torch.Tensor, view_valid: torch.Tensor,
 
 def volume_accum_cuda(projections: torch.Tensor, features: torch.Tensor,
                       view_valid: torch.Tensor, voxel_dim: Sequence[int],
-                      voxel_size: float, origin: Sequence[float]
+                      voxel_size: float, origin: Sequence[float],
+                      write_sum: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The ``csrc/volume_accum.cu`` kernel; same contract as
     ``volume_accum_plain``.  Raises on inputs the kernel does not take."""
     V, H, W, C = features.shape
     dev = features.device
     proj, ok = _kernel_inputs(projections, view_valid, features, V, H, W, C)
-    out = torch.empty(*voxel_dim, C, dtype=features.dtype, device=dev)
+    out = torch.empty(*voxel_dim, C, device=dev, dtype=torch.float32
+                      if write_sum else features.dtype)
     cnt = torch.empty(*voxel_dim, dtype=torch.float32, device=dev)
     valid = torch.empty(*voxel_dim, dtype=torch.bool, device=dev)
     org = [float(o) for o in origin]
-    _build.launch("cnrma_volume_accum", VOLUME_ACCUM, dev,
+    _build.launch("cnrma_volume_accum",
+                  VOLUME_ACCUM_SUM if write_sum else VOLUME_ACCUM, dev,
                   features.data_ptr(), proj.data_ptr(), ok.data_ptr(),
                   out.data_ptr(), cnt.data_ptr(), valid.data_ptr(), V, H, W,
                   C, *voxel_dim, float(voxel_size), *org,
-                  int(features.dtype == torch.bfloat16))
+                  int(features.dtype == torch.bfloat16), int(write_sum))
     return out, cnt, valid
 
 
 def volume_accum(projections: torch.Tensor, features: torch.Tensor,
                  view_valid: torch.Tensor, voxel_dim: Sequence[int],
-                 voxel_size: float, origin: Sequence[float]
+                 voxel_size: float, origin: Sequence[float],
+                 write_sum: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(mean volume, count, valid): the CUDA kernel for CUDA features, the
-    plain version for CPU features.  No gradient: see ``VolumeAccum``."""
+    """(mean volume, count, valid), or with ``write_sum`` (fp32 sum, count,
+    valid): the CUDA kernel for CUDA features, the plain version for CPU
+    features.  No gradient: see ``VolumeAccum``."""
     return _build.dispatch(features, volume_accum_cuda, volume_accum_plain,
                            projections, features, view_valid, voxel_dim,
-                           voxel_size, origin)
+                           voxel_size, origin, write_sum)
 
 
 def _sum_cotangent(g_mean: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
@@ -290,4 +310,61 @@ def accumulate_views(projections: torch.Tensor, features: torch.Tensor,
     volume, _, valid = VolumeAccum.apply(projections, features, view_valid,
                                          tuple(voxel_dim), voxel_size,
                                          tuple(origin))
+    return volume, valid
+
+
+class PartialVolume(torch.autograd.Function):
+    """The mean volume of a scene whose views are split over ``group``,
+    as a function of this rank's features, each rank then consuming its
+    own part of it (an X-slab).
+
+    Forward: this rank's views through ``volume_accum``'s sum mode; the
+    fp32 sum and count all-reduced over the group; the mean where the
+    count is positive, 0 elsewhere, in the feature dtype
+    (``_normalize_volume``).  Backward: the ranks' cotangents summed (each
+    holds its own slab's) in fp32, then ``volume_accum_bwd`` of this
+    rank's views with the group's count."""
+
+    @staticmethod
+    def forward(ctx, projections, features, view_valid, voxel_dim,
+                voxel_size, origin, group):
+        vol, cnt, _ = volume_accum(projections, features, view_valid,
+                                   voxel_dim, voxel_size, origin,
+                                   write_sum=True)
+        shard.all_reduce_sum(vol, group)
+        shard.all_reduce_sum(cnt, group)
+        seen = cnt > 0
+        vol /= torch.where(seen, cnt, 1.0)[..., None]
+        ctx.save_for_backward(projections, view_valid, cnt)
+        ctx.grid = (tuple(voxel_dim), float(voxel_size), tuple(origin))
+        ctx.feat = (tuple(features.shape[1:3]), features.dtype)
+        ctx.group = group
+        ctx.mark_non_differentiable(cnt, seen)
+        return vol.to(features.dtype), cnt, seen
+
+    @staticmethod
+    def backward(ctx, g_mean, _g_cnt, _g_valid):
+        projections, view_valid, cnt = ctx.saved_tensors
+        voxel_dim, voxel_size, origin = ctx.grid
+        hw, dtype = ctx.feat
+        g = shard.all_reduce_sum(g_mean.float().contiguous().clone(),
+                                 ctx.group)
+        g_feat = volume_accum_bwd(projections, g, cnt, view_valid, hw,
+                                  voxel_dim, voxel_size, origin, dtype)
+        return None, g_feat, None, None, None, None, None
+
+
+def partial_volume(projections: torch.Tensor, features: torch.Tensor,
+                   view_valid: torch.Tensor, voxel_dim: Sequence[int],
+                   voxel_size: float, origin: Sequence[float], group
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``accumulate_views`` of a scene whose views are split over the
+    ranks of ``group``: this rank's projections [v, 3, 4], features
+    [v, H, W, C] and flags [v] in, the scene's mean volume [X, Y, Z, C]
+    (feature dtype) and valid mask out, on every rank
+    (``PartialVolume``; JAX's ``accumulate_views_partial``, ``psum`` and
+    ``_normalize_volume``)."""
+    volume, _, valid = PartialVolume.apply(
+        projections, features, view_valid, tuple(voxel_dim), voxel_size,
+        tuple(origin), group)
     return volume, valid

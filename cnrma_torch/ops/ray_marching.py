@@ -417,8 +417,8 @@ def ray_march_scene(projections: torch.Tensor, tsdf: torch.Tensor,
                     width: int, n_samples: int = 300,
                     weight_threshold: float = 0.05, capacity: int = 32768,
                     occupancy: torch.Tensor = None, skip_factor: int = 8,
-                    skip_window: int = 48, coarse_step: int = 4
-                    ) -> RayMarchPoints:
+                    skip_window: int = 48, coarse_step: int = 4,
+                    view_offset: int = 0) -> RayMarchPoints:
     """March every pixel of every view of one scene: ``ray_march_neus`` for
     all views at once, one ``march_rays`` call, no host sync.
 
@@ -428,6 +428,10 @@ def ray_march_scene(projections: torch.Tensor, tsdf: torch.Tensor,
         view_valid: [V] bool; an invalid view emits no point.
         occupancy: optional ``build_occupancy(tsdf, skip_factor)`` grid.
         capacity: points kept per view (fixed shape).
+        view_offset: the scene's index of the first of these views (a
+            rank's block of a scene split across ranks): the points carry
+            the views' ids ``view_offset + i``.  The kernel's outputs are
+            per ray and hold no view id, so they do not depend on it.
 
     Returns:
         RayMarchPoints of [V, capacity] slots; weight 0 marks empty ones.
@@ -438,7 +442,7 @@ def ray_march_scene(projections: torch.Tensor, tsdf: torch.Tensor,
         o, d, view_valid, tsdf, occupancy, origin, voxel_size, n_samples,
         weight_threshold, skip_factor, skip_window, coarse_step)
     t_one = _t_one(voxel_dim, voxel_size, n_samples)
-    views = torch.arange(projections.shape[0], device=d.device)
+    views = view_offset + torch.arange(projections.shape[0], device=d.device)
     return _points(weight, sample, o, d, views, t_one, width, capacity)
 
 
@@ -563,15 +567,17 @@ def ray_march_depth_scene(projections: torch.Tensor, tsdf: torch.Tensor,
                           voxel_dim: Sequence[int], voxel_size: float,
                           origin: Sequence[float], height: int, width: int,
                           n_samples: int = 300, depth_points: int = 2,
-                          capacity: int = 32768) -> RayMarchPoints:
+                          capacity: int = 32768, view_offset: int = 0
+                          ) -> RayMarchPoints:
     """``ray_march_depth`` of every view of one scene, one view at a time
     (a full ScanNet view is 19,200 rays x 300 samples); an invalid view
     (``view_valid`` [V] False) keeps no point.  Returns RayMarchPoints of
-    [V, capacity] slots."""
+    [V, capacity] slots, the views' ids from ``view_offset`` on (as
+    ``ray_march_scene``)."""
     _check_dims(tsdf, voxel_dim)
     o, d = get_ray_parameters(projections, height, width)
     views = [_depth_view(o[i], d[i], tsdf, voxel_dim, voxel_size, origin,
-                         width, i, n_samples, depth_points, capacity,
-                         view_valid[i])
+                         width, view_offset + i, n_samples, depth_points,
+                         capacity, view_valid[i])
              for i in range(projections.shape[0])]
     return RayMarchPoints(*(torch.stack(f) for f in zip(*views)))

@@ -14,12 +14,18 @@ mean of one tensor, no barrier.  ``flatten_bucket`` and
 ``unflatten_bucket`` are ``_flatten_bucket``/``_unflatten_bucket`` of
 ``cnrma_tpu/train/loop.py``: many tensors as one fp32 vector, so a step
 all-reduces once.
+
+``view_shards`` lays the world out as JAX's ``('data', 'view')`` mesh
+(``tools/train.py --view-shards``): n ranks a scene, rank r the view
+index ``r % n`` of data row ``r // n``, with a process group for each row
+(a scene's ranks) and for each view index (the ranks that hold the same
+part of different scenes).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -85,13 +91,40 @@ def all_mean(tensor: torch.Tensor, group=None) -> torch.Tensor:
 
 
 def gather_to_main(obj: Any, group=None) -> Optional[List[Any]]:
-    """Every rank's ``obj`` (picklable) as a list in rank order on rank 0;
-    ``None`` on the others.  ``[obj]`` without a group."""
+    """Every rank's ``obj`` (picklable) as a list in rank order on the
+    group's rank 0; ``None`` on the others.  ``[obj]`` without a group."""
     if group is None:
         return [obj]
     out = [None] * world(group) if is_main(group) else None
-    dist.gather_object(obj, out, dst=0, group=group)
+    dist.gather_object(obj, out, dst=dist.get_global_rank(group, 0),
+                       group=group)
     return out
+
+
+class ViewShards(NamedTuple):
+    """A rank's place in a (data, view) layout of the world."""
+    n: int          # ranks a scene: the size of a view group
+    row: int        # this rank's data row (its scene): rank // n
+    index: int      # this rank's view index in its row: rank % n
+    rows: int       # data rows: world size // n
+    view: Any       # the group of this rank's row
+    data: Any       # the group of the ranks with this rank's view index
+
+
+def view_shards(group, n: int) -> ViewShards:
+    """The (data, view) layout of ``group``'s world with ``n`` ranks a
+    scene (``n`` divides the world size).  Every rank makes every
+    subgroup, in the same order, as ``torch.distributed.new_group``
+    requires; they take the world's backend."""
+    w, r = world(group), rank(group)
+    if n < 1 or w % n:
+        raise ValueError(f"--view-shards {n} must divide the {w} visible "
+                         "devices")
+    views = [dist.new_group(list(range(row * n, (row + 1) * n)))
+             for row in range(w // n)]
+    datas = [dist.new_group(list(range(j, w, n))) for j in range(n)]
+    return ViewShards(n=n, row=r // n, index=r % n, rows=w // n,
+                      view=views[r // n], data=datas[r % n])
 
 
 def flatten_bucket(tensors: Sequence[torch.Tensor]) -> torch.Tensor:

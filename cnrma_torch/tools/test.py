@@ -3,7 +3,7 @@
     python -m cnrma_torch.tools.test CONFIG [CHECKPOINT] [--save-path DIR]
         [--middle-save-path DIR] [--middle-visualize-path DIR]
         [--max-scenes N] [--seed S] [--cfg-options k=v ...] [--device cpu]
-        [--n-devices N]
+        [--n-devices N | --view-shard]
 
 Port of ``tools/test.py`` (the reference ``test.py`` +
 ``RayMarching.forward_test``).  Per scene it writes, with the JAX tool's
@@ -46,6 +46,22 @@ needs no collective.  The subsample's generator is seeded by the scene's
 global index, so a scene gives the same files alone, inside a run of
 many, or on any rank; ``--max-scenes M`` writes exactly M scenes in all.
 Any failure stops the run with an error: no scene is skipped.
+
+``--view-shard`` splits each scene's views across the ranks of a
+``torchrun`` world (JAX's ``--view-shard``, the multi-card latency path
+for one scene):
+
+    torchrun --nproc_per_node N -m cnrma_torch.tools.test CONFIG \
+        --view-shard [...]
+
+Rank r runs the 2D tower on its block of the views (padded to a multiple
+of N with invalid views) and K1's sum of them; one all-reduce gives every
+rank the scene's volume, and the U-Net, head, march and detector run
+alike on every rank (the forward's ``view_group``).  Rank 0 alone reads
+ahead (its reader threads) and sends each scene to the others, and rank 0
+alone writes the files, which are one rank's.  NCCL across cards, gloo
+with ``--device cpu``.  ``--view-shard`` with ``--n-devices`` is refused;
+at world size 1 it warns and runs on one device.
 """
 
 from __future__ import annotations
@@ -67,11 +83,14 @@ from cnrma_torch.core.config import Config
 from cnrma_torch.data.loader import SceneLoader
 from cnrma_torch.geometry.tsdf import TSDF
 from cnrma_torch.models.fcaf3d_only import FCAF3DOnly
+from cnrma_torch.parallel import dist
 from cnrma_torch.synthetic import synthesize_parameters
 from cnrma_torch.tools._common import no_tf32
 from cnrma_torch.utils.ply import write_ply_mesh, write_ply_points
 
 _BATCH_KEYS = ("imgs", "projection", "view_valid", "offset")
+# what a scene's record and files need besides its tensors
+_SCENE_KEYS = ("index", "scene", "offset", "load_s", "wait_s")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -94,6 +113,10 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--n-devices", type=int, default=1,
                    help="share the scenes out over N processes, one a "
                         "card (N CPU processes with --device cpu)")
+    p.add_argument("--view-shard", action="store_true",
+                   help="under torchrun: split each scene's views across "
+                        "the ranks (tower and volume), one all-reduce of "
+                        "the volume")
     return p.parse_args(argv)
 
 
@@ -226,12 +249,26 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, Any]]:
         raise SystemExit(f"--device {args.device}: no CUDA device here "
                          "(pass --device cpu to run on the CPU)")
     n = max(1, args.n_devices)
+    if n > 1 and args.view_shard:
+        raise SystemExit("--n-devices (scene sharding) and --view-shard "
+                         "(view sharding) are mutually exclusive")
+    if args.view_shard:
+        if int(os.environ.get("WORLD_SIZE", "1")) == 1:
+            print("WARNING: --view-shard needs >1 device; running "
+                  "single-device", flush=True)
+            return run_rank(args, 0, 1, dev)
+        group, rank_dev = dist.init_from_env(dev.type)
+        try:
+            return run_rank(args, dist.rank(group), dist.world(group),
+                            rank_dev, view_group=group)
+        finally:
+            dist.shutdown(group)
     if n == 1:
         return run_rank(args, 0, 1, dev)
     results = mp.get_context("spawn").SimpleQueue()
     procs = mp.start_processes(
-        _rank_main, args=(args, n, results), nprocs=n, join=False,
-        start_method="spawn")
+        _rank_main, args=(args, n, results, torch.get_num_threads()),
+        nprocs=n, join=False, start_method="spawn")
     records: List[Dict[str, Any]] = []
     done = False
     while not done:
@@ -241,11 +278,13 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, Any]]:
     return sorted(records, key=lambda r: r["index"])
 
 
-def _rank_main(rank: int, args, world: int, results) -> None:
+def _rank_main(rank: int, args, world: int, results, threads: int) -> None:
     """Rank ``rank`` of ``--n-devices``: its device, its scenes, with TF32
-    off as in the caller, so that its files are the ones the caller's
-    process would write."""
+    off and the caller's number of torch threads (the CPU's convolutions
+    sum in an order that depends on it), so that its files are the ones
+    the caller's process would write."""
     no_tf32()
+    torch.set_num_threads(threads)
     if args.device == "cpu":
         dev = torch.device("cpu")
     else:
@@ -254,10 +293,37 @@ def _rank_main(rank: int, args, world: int, results) -> None:
     results.put(run_rank(args, rank, world, dev))
 
 
-def run_rank(args, rank: int, world: int, dev: torch.device
-             ) -> List[Dict[str, Any]]:
+def _broadcast_scenes(loader, n_scenes: int, group, dev: torch.device):
+    """The scenes of rank 0's ``loader`` on every rank of ``group``: rank
+    0 reads, the others take each scene's tensors and names from it.
+    Yields (the loader's batch without its arrays, the tensors on
+    ``dev``)."""
+    main = dist.is_main(group)
+    it = iter(loader) if main else None
+    for _ in range(n_scenes):
+        meta = [None]
+        if main:
+            batch = next(it)
+            tb = {k: torch.from_numpy(np.asarray(batch[k])).to(dev)
+                  for k in _BATCH_KEYS}
+            meta = [({k: batch[k] for k in _SCENE_KEYS},
+                     {k: (tuple(t.shape), t.dtype) for k, t in tb.items()})]
+        torch.distributed.broadcast_object_list(meta, src=0, group=group)
+        info, shapes = meta[0]
+        if not main:
+            tb = {k: torch.empty(shape, dtype=dtype, device=dev)
+                  for k, (shape, dtype) in shapes.items()}
+        for k in _BATCH_KEYS:
+            torch.distributed.broadcast(tb[k], src=0, group=group)
+        yield info, tb
+
+
+def run_rank(args, rank: int, world: int, dev: torch.device,
+             view_group=None) -> List[Dict[str, Any]]:
     """Rank ``rank`` of ``world``'s scenes through the forward and the
-    writer; its records."""
+    writer; its records.  With a ``view_group`` the ranks take every
+    scene together (``--view-shard``): rank 0 reads and writes, and the
+    others return no record."""
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_options(dict(kv.split("=", 1)
@@ -282,20 +348,28 @@ def run_rank(args, rank: int, world: int, dev: torch.device
         print(f"{args.checkpoint} holds no detector: its {kept} tensors keep "
               f"their synthesis from --seed {args.seed}", flush=True)
     model.to(dev)
-
-    loader = SceneLoader(dataset, shuffle=False,
-                         num_workers=reader_workers(cfg),
-                         rank=rank, world_size=world, drop_last=False)
+    writes = view_group is None or rank == 0
+    if view_group is not None:
+        scenes = _broadcast_scenes(
+            SceneLoader(dataset, shuffle=False,
+                        num_workers=reader_workers(cfg), drop_last=False)
+            if rank == 0 else None, len(dataset), view_group, dev)
+    else:
+        loader = SceneLoader(dataset, shuffle=False,
+                             num_workers=reader_workers(cfg),
+                             rank=rank, world_size=world, drop_last=False)
+        scenes = ((batch, {k: torch.from_numpy(np.asarray(batch[k])).to(dev)
+                           for k in _BATCH_KEYS}) for batch in loader)
     writer = ThreadPoolExecutor(max_workers=1)
     pending, records = [], []
     try:
-        for batch in loader:
+        for batch, tb in scenes:
             index, scene = batch["index"], batch["scene"][0]
-            tb = {k: torch.from_numpy(np.asarray(batch[k])).to(dev)
-                  for k in _BATCH_KEYS}
             t0 = time.perf_counter()
             gen = torch.Generator(device=dev).manual_seed(index)
-            out = model(tb, generator=gen)
+            out = model(tb, generator=gen, view_group=view_group)
+            if not writes:
+                continue
             host = _host_outputs(model, out, batch["offset"][0],
                                  bool(middle_path))
             forward_s = time.perf_counter() - t0

@@ -83,6 +83,24 @@ vars over the ranks (``train/loop.py:train_step``).  The val split is
 shared out the same way without the drop and scored on rank 0.  Only
 rank 0 logs and writes checkpoints; every rank reads ``--load-from`` and
 ``--resume-from``.
+
+One scene split across ranks (JAX's ``--view-shards``, the ``('data',
+'view')`` mesh):
+
+    torchrun --nproc_per_node N -m cnrma_torch.tools.train CONFIG \
+        --view-shards n [...]
+
+gives each scene n ranks (n divides N): rank r is view index ``r % n``
+of data row ``r // n`` (``parallel/dist.py:view_shards``).  The ranks of a
+row read the same scene and step on it through
+``CNRMA.forward_view_sharded`` (each its V/n views for the tower, volume
+and march, its X-slab of the U-Net and TSDF head; ``Atlas`` alike without
+the detector); the step sums the sharded modules' gradients over the
+row and averages the detector's, then averages over the rows; a row's
+draws fold in the row, not the rank.  A step takes one scene a row:
+``--batch-size`` may only be N / n.  The val split is scored by the rows,
+each scene through the test forward's view sharding.  ``FCAF3DOnly``
+(stage 2) has no views to split and is refused.
 """
 
 from __future__ import annotations
@@ -126,6 +144,10 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--batch-size", type=int, default=None,
                    help="scenes a step over all ranks, a multiple of the "
                         "world size (default: one scene a rank)")
+    p.add_argument("--view-shards", type=int, default=1,
+                   help="split each scene across N ranks: views for the "
+                        "2D tower, volume and march, X-slabs for the 3D "
+                        "U-Net (N divides the world size)")
     return p.parse_args(argv)
 
 
@@ -150,13 +172,16 @@ def test_twin(cfg, model: nn.Module) -> nn.Module:
 
 
 def val_evaluator(cfg, model: nn.Module, seed: int, device, group=None,
-                  batch_size: Optional[int] = None
+                  batch_size: Optional[int] = None,
+                  shards: Optional[dist.ViewShards] = None
                   ) -> Tuple[Optional[Callable[[], Dict[str, float]]], int,
                              str]:
     """(the evaluator ``run_training`` calls, the interval in epochs, the
     metric) of the config's ``evaluation`` over ``data.val`` in batches of
     ``batch_size`` scenes over all ranks (default one a rank), each rank
-    reading its share of the split; no evaluator when the config has
+    reading its share of the split; with ``shards`` one scene a data row
+    through the test forward's view sharding, the rows' results gathered
+    over each view index's data group; no evaluator when the config has
     neither or the split cannot be built."""
     eval_cfg = cfg.get("evaluation", {}) or {}
     metric = str(eval_cfg.get("metric", "loss"))
@@ -169,13 +194,18 @@ def val_evaluator(cfg, model: nn.Module, seed: int, device, group=None,
         print(f"WARNING: val split unavailable ({e}); mid-training "
               "evaluation disabled", flush=True)
         return None, interval, metric
-    loader = SceneLoader(dataset, shuffle=False,
-                         num_workers=reader_workers(cfg),
-                         rank=dist.rank(group), world_size=dist.world(group),
-                         drop_last=False, batch_size=batch_size)
     twin = test_twin(cfg, model)
+    rank, world, view = dist.rank(group), dist.world(group), None
+    if shards is not None:
+        rank, world, group = shards.row, shards.rows, shards.data
+        view = shards.view
+    loader = SceneLoader(dataset, shuffle=False,
+                         num_workers=reader_workers(cfg), rank=rank,
+                         world_size=world, drop_last=False,
+                         batch_size=batch_size)
     return (lambda: evaluate_split(twin, loader, device, metric,
-                                   group=group), interval, metric)
+                                   group=group, view_group=view),
+            interval, metric)
 
 
 def main(argv: Optional[Sequence[str]] = None
@@ -189,8 +219,18 @@ def main(argv: Optional[Sequence[str]] = None
         raise SystemExit(f"--device {args.device}: no CUDA device here "
                          "(pass --device cpu to run on the CPU)")
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if args.batch_size is not None and (args.batch_size < 1
-                                        or args.batch_size % world):
+    n = args.view_shards
+    if n < 1 or world % n:
+        raise SystemExit(f"--view-shards {n} must divide the {world} "
+                         "visible devices")
+    if n > 1:
+        if args.batch_size not in (None, world // n):
+            raise SystemExit(
+                f"--batch-size {args.batch_size} with --view-shards {n}: "
+                "forward_view_sharded: per-device batch must be 1 scene, "
+                f"got {args.batch_size / (world // n):g}")
+    elif args.batch_size is not None and (args.batch_size < 1
+                                          or args.batch_size % world):
         raise SystemExit(f"--batch-size {args.batch_size}: a step takes a "
                          f"multiple of the world size, {world} here, of "
                          "scenes (the same number a rank)")
@@ -204,6 +244,8 @@ def main(argv: Optional[Sequence[str]] = None
 def _train(args, group, dev: torch.device
            ) -> Tuple[List[Dict[str, Any]], Optional[str]]:
     world = dist.world(group)
+    shards = (dist.view_shards(group, args.view_shards)
+              if args.view_shards > 1 else None)
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_options(dict(kv.split("=", 1)
@@ -215,12 +257,19 @@ def _train(args, group, dev: torch.device
             f.write(cfg.dump())
 
     dataset = build_dataset(cfg, "train", seed=args.seed)
+    # the ranks of a view group read their row's scene
+    rank, rows = ((shards.row, shards.rows) if shards is not None
+                  else (dist.rank(group), world))
     loader = SceneLoader(dataset, seed=args.seed,
-                         num_workers=reader_workers(cfg),
-                         rank=dist.rank(group), world_size=world,
-                         batch_size=args.batch_size)
+                         num_workers=reader_workers(cfg), rank=rank,
+                         world_size=rows,
+                         batch_size=rows if shards else args.batch_size)
     torch.manual_seed(args.seed)
     model = build_model(cfg, mode="train")
+    if shards is not None and not hasattr(model, "forward_view_sharded"):
+        raise SystemExit(f"--view-shards {shards.n}: {type(model).__name__} "
+                         "reads no views to split (stage 2 trains on "
+                         "dumped points)")
     load_from = args.load_from or cfg.get("load_from")
     resume_from = args.resume_from or cfg.get("resume_from")
     # as tools/train.py: the R-50 goes in first, a checkpoint over it
@@ -250,7 +299,8 @@ def _train(args, group, dev: torch.device
     if resume_from:
         load_checkpoint(resume_from, state)
     evaluate, eval_interval, eval_metric = val_evaluator(
-        cfg, model, args.seed, dev, group, args.batch_size)
+        cfg, model, args.seed, dev, group,
+        rows if shards else args.batch_size, shards)
     return run_training(
         state, loader, epochs=int(cfg.get("total_epochs", 1)),
         work_dir=work_dir, device=dev, seed=args.seed,
@@ -258,7 +308,8 @@ def _train(args, group, dev: torch.device
         checkpoint_interval=int(cfg.get("checkpoint_config", {}).get(
             "interval", 10)),
         max_steps=args.max_steps, evaluate=evaluate,
-        eval_interval=eval_interval, eval_metric=eval_metric, group=group)
+        eval_interval=eval_interval, eval_metric=eval_metric, group=group,
+        shards=shards)
 
 
 if __name__ == "__main__":

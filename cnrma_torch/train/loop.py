@@ -57,10 +57,12 @@ def total_loss(losses: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 def step_generator(seed: int, step: int, device, rank: int = 0
                    ) -> torch.Generator:
-    """The draws of step ``step`` of a run seeded ``seed``, on rank
-    ``rank``: rank 0's seed is ``(seed << 32) + step``, and another rank
-    folds its number into it (JAX's ``fold_in(rng, axis_index)``), so a
-    one-process run draws what rank 0 does."""
+    """The draws of step ``step`` of a run seeded ``seed``, on data rank
+    ``rank`` (the rank, or with view shards its data row, so that the
+    ranks of one scene draw alike): rank 0's seed is ``(seed << 32) +
+    step``, and another rank folds its number into it (JAX's
+    ``fold_in(rng, axis_index('data'))``), so a one-process run draws what
+    rank 0 does."""
     base = (int(seed) << 32) + int(step)
     if rank:
         base = int(np.random.SeedSequence([base, int(rank)]).generate_state(
@@ -76,18 +78,34 @@ def running_stats(model: torch.nn.Module) -> List[torch.Tensor]:
             for b in (m.running_mean, m.running_var)]
 
 
+# the module whose gradient every rank of a view group computes whole;
+# the others' are partials (JAX ``reduce_view``)
+REPLICATED_PREFIX = "detector."
+
+
 def mean_over_ranks(model: torch.nn.Module, log_vars: Dict[str, Any],
-                    group) -> None:
+                    group, view_shards: int = 1) -> None:
     """The data-parallel part of a step, after each rank's backward: one
     fp32 bucket of every parameter's gradient (zeros for ``None``, the
     frozen ones too, whose norm the clip counts as optax's does), every
     moved running statistic and the log vars, all-reduced once and
     divided by the world size.  The means replace the gradients (as DDP
     leaves them), the statistics (averaged as the JAX step's ``pmean``
-    does, where DDP would broadcast rank 0's) and the log vars."""
-    params = [p for _, p in model.named_parameters()]
+    does, where DDP would broadcast rank 0's) and the log vars.
+
+    With ``view_shards`` n > 1 ranks a scene (``forward_view_sharded``)
+    the gradients of the sharded modules (all but the detector) are
+    partials: they enter the bucket times n, so that the world's mean is
+    the data rows' mean of their sums over each view group, and the
+    detector's (whole on every rank) the data rows' mean of their view
+    groups' mean, as JAX's ``reduce_view`` then ``pmean``."""
+    named = list(model.named_parameters())
+    params = [p for _, p in named]
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in params]
+    if view_shards > 1:
+        grads = [g if name.startswith(REPLICATED_PREFIX) else g * view_shards
+                 for (name, _), g in zip(named, grads)]
     stats = running_stats(model)
     logs = list(log_vars.values())
     parts = grads + stats + logs
@@ -105,19 +123,27 @@ def mean_over_ranks(model: torch.nn.Module, log_vars: Dict[str, Any],
 def train_step(model: torch.nn.Module, optimizer: Optimizer,
                batch: Dict[str, Any],
                generator: Optional[torch.Generator] = None,
-               group=None, **draws) -> Dict[str, torch.Tensor]:
+               group=None, shards: Optional[dist.ViewShards] = None,
+               **draws) -> Dict[str, torch.Tensor]:
     """One optimizer step on ``batch`` (tensors on the model's device).
     ``draws`` (``uniform``, ``aug_draws``) replace the generator's, as in
     ``CNRMA.forward_train``.  With a process ``group`` each rank steps on
     its own scene, and ``mean_over_ranks`` averages the gradients, the
     running statistics and the log vars before the clip, so every rank
-    takes the same step.  Returns the log vars as 0-dim tensors: each
+    takes the same step.  With ``shards`` (a layout of the world ``group``
+    with ``shards.n`` ranks a scene) the ranks of a view group step on one
+    scene through ``forward_view_sharded`` (JAX's ``make_train_step(
+    view_axis='view')``).  Returns the log vars as 0-dim tensors: each
     loss, ``total_loss`` and ``grad_norm`` (the global norm of the
     gradients before the clip)."""
     model.train()
-    if group is not None:
-        draws["group"] = group
-    losses = model.forward_train(batch, generator=generator, **draws)
+    if shards is not None:
+        losses = model.forward_view_sharded(batch, shards,
+                                            generator=generator, **draws)
+    else:
+        if group is not None:
+            draws["group"] = group
+        losses = model.forward_train(batch, generator=generator, **draws)
     loss = total_loss(losses)
     model.zero_grad(set_to_none=True)
     loss.backward()
@@ -125,7 +151,8 @@ def train_step(model: torch.nn.Module, optimizer: Optimizer,
     log_vars = {k: v.detach() for k, v in losses.items()}
     log_vars["total_loss"] = loss.detach()
     if group is not None:
-        mean_over_ranks(model, log_vars, group)
+        mean_over_ranks(model, log_vars, group,
+                        shards.n if shards is not None else 1)
         mark("all_reduce")
     grad_norm = optimizer.step({n: p.grad for n, p in
                                 model.named_parameters()})
@@ -162,7 +189,7 @@ def _scene_boxes(out: Dict[str, Any], batch: Dict[str, Any], i: int,
 def _score_val(model: torch.nn.Module, val_loader, device, losses: bool,
                boxes: bool, score_thr: float = 0.01, iou_thr: float = 0.5,
                uniforms: Optional[Sequence[torch.Tensor]] = None,
-               group=None) -> Dict[str, float]:
+               group=None, view_group=None) -> Dict[str, float]:
     """One pass of ``model``'s test forward (eval-mode norms) over
     ``val_loader``: the mean over its batches of each batch's losses
     (``losses``; a batch of several scenes pools them, as the JAX
@@ -174,7 +201,8 @@ def _score_val(model: torch.nn.Module, val_loader, device, losses: bool,
     a process ``group`` each rank runs its share of the split (a
     ``SceneLoader`` with its rank), the batches' results gather to rank 0,
     which scores them in scene order as one process would; the other
-    ranks return ``{}``."""
+    ranks return ``{}``.  A ``view_group`` splits each scene's views over
+    its ranks (the test forward's view sharding)."""
     device = torch.device(device)
     was_training = model.training
     model.eval()
@@ -193,6 +221,8 @@ def _score_val(model: torch.nn.Module, val_loader, device, losses: bool,
                     is not None else {"generator": [torch.Generator(
                         device=device).manual_seed(int(j))
                         for j in indices]})
+            if view_group is not None:
+                draw["view_group"] = view_group
             out = model(on_device, **draw)
             found = {}
             if losses:
@@ -254,14 +284,15 @@ def evaluate_val_map(model: torch.nn.Module, val_loader, device,
 
 
 def evaluate_split(model: torch.nn.Module, val_loader, device,
-                   metric: str = "loss", group=None) -> Dict[str, float]:
+                   metric: str = "loss", group=None,
+                   view_group=None) -> Dict[str, float]:
     """``evaluate_val`` and, for ``metric='mAP'``, ``evaluate_val_map`` in
     one pass of the test forward over ``val_loader``; with a process
     ``group``, over each rank's shard, scored on rank 0 (``{}`` on the
-    others)."""
+    others); with a ``view_group``, each scene's views split over it."""
     return _score_val(model, val_loader, device, losses=True,
                       boxes=metric == "mAP" and hasattr(model, "detector"),
-                      group=group)
+                      group=group, view_group=view_group)
 
 
 class TextLogger:
@@ -314,7 +345,8 @@ def run_training(state: TrainState, loader, *, epochs: int, work_dir: str,
                  max_steps: Optional[int] = None,
                  evaluate: Optional[Callable[[], Dict[str, float]]] = None,
                  eval_interval: int = 1, eval_metric: str = "loss",
-                 group=None) -> Tuple[List[Dict[str, Any]], Optional[str]]:
+                 group=None, shards: Optional[dist.ViewShards] = None
+                 ) -> Tuple[List[Dict[str, Any]], Optional[str]]:
     """Epochs ``state.epoch`` .. ``epochs - 1`` over ``loader``; stops after
     ``max_steps`` optimizer steps in all.  Checkpoints
     ``{work_dir}/epoch_{n}.pt`` after every ``checkpoint_interval``-th
@@ -342,7 +374,9 @@ def run_training(state: TrainState, loader, *, epochs: int, work_dir: str,
     data-parallel ``train_step``, its draws from ``step_generator`` with
     its rank; ``evaluate`` runs on every rank (each scores its shard and
     rank 0 the whole split).  Only rank 0 logs and writes checkpoints,
-    between two barriers; every rank returns its records and the path."""
+    between two barriers; every rank returns its records and the path.
+    With ``shards`` the ranks of a view group step on one scene
+    (``train_step``), their draws from their data row."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     main = dist.is_main(group)
@@ -360,10 +394,12 @@ def run_training(state: TrainState, loader, *, epochs: int, work_dir: str,
             with stage_marks(device) as marks:
                 on_device = device_batch(batch, device)
                 mark("copy")
+                row = (shards.row if shards is not None
+                       else dist.rank(group))
                 log_vars = train_step(
                     state.model, state.optimizer, on_device,
-                    step_generator(seed, state.step, device,
-                                   dist.rank(group)), group=group)
+                    step_generator(seed, state.step, device, row),
+                    group=group, shards=shards)
             log_vars = {k: float(v) for k, v in log_vars.items()}
             if cuda:
                 torch.cuda.synchronize(device)

@@ -26,20 +26,12 @@ import torch
 from cnrma_torch.models import fcaf3d as tdet
 from cnrma_torch.synthetic import write_arkit
 from cnrma_tpu.models import fcaf3d as jdet
+from _torch_threads import _few_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARKIT_CONFIGS = ("ray_marching_arkit.py", "arkit_middle.py",
                  "atlas_recon_arkit.py", "fcaf3d_middle_arkit.py")
 T = torch.from_numpy
-
-
-@pytest.fixture(autouse=True)
-def _few_threads():
-    """Two torch threads: the test lane runs several workers a core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

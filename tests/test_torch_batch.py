@@ -50,6 +50,7 @@ from cnrma_torch.models import layers as tl
 from cnrma_torch.synthetic import (
     synthesize_parameters, write_point_dumps, write_scannet)
 from cnrma_torch.train import loop as tloop
+from _torch_threads import _few_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAGE2 = os.path.join(REPO, "configs", "fcaf3d_middle_scannet.py")
@@ -60,15 +61,6 @@ N_SCENES = 5                # the CLI's train split: 2 steps an epoch at B = 2
 N_VAL = 3                   # its val split: batches of 2 and 1
 TIME_LIMIT = 240            # seconds the spawned ranks may take
 T = torch.from_numpy
-
-
-@pytest.fixture(autouse=True)
-def _few_threads():
-    """Two torch threads: the test lane runs several workers a core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _close_scaled(got, want, tol=1e-6):
@@ -255,6 +247,16 @@ def _aug_draws(draws):
             for u_h, u_v, angle, scale, trans in draws]
 
 
+def _no_remat(monkeypatch):
+    """JAX's ``CNRMA`` and ``Atlas`` build their U-Net without
+    ``nn.remat``: the same gradients bit for bit, and a sixth less to
+    trace at two scenes."""
+    from cnrma_tpu.models import cn_rma as jcn
+    unet = jcn.UNet3D
+    monkeypatch.setattr(jcn, "UNet3D",
+                        lambda **kw: unet(**dict(kw, remat=False)))
+
+
 @pytest.fixture(scope="module")
 def cnrma_step():
     """JAX's ``value_and_grad`` of the tiny CNRMA's training forward on two
@@ -262,21 +264,19 @@ def cnrma_step():
     detector voxels, the views of ``batch_views``), with each scene's
     subsample draw, kept points and augmentation draw read out; the port's
     batch and draws on the same parameters (``synthesize_parameters``,
-    seed 1)."""
+    seed 1).  JAX's U-Net runs without its recompute
+    (``_no_remat``)."""
     from cnrma_tpu.models import cn_rma as jcn
     from test_pipeline import tiny_model
     from test_torch_bridge import tiny_torch_cnrma
-    from test_torch_test_cli import _flax_tree_from_torch
+    from test_torch_stages import _flax_tree
     from test_torch_train import STEP_FCAF3D_VOXEL
     model, batch = tiny_model(batch=B)
     model = model.clone(voxel_size_fcaf3d=STEP_FCAF3D_VOXEL)
     batch = dict(batch, **batch_views())
     port = tiny_torch_cnrma(voxel_size_fcaf3d=STEP_FCAF3D_VOXEL)
     synthesize_parameters(port, 1)
-    rng = jax.random.PRNGKey(0)
-    shapes = jax.eval_shape(lambda: model.init(
-        {"params": rng, "sample": rng, "aug": rng}, batch, train=False))
-    variables = _flax_tree_from_torch(port.state_dict(), shapes)
+    variables = _flax_tree(port.state_dict())
     subs, augs = [], []
     sub = jcn._normalize_subsample
 
@@ -298,6 +298,7 @@ def cnrma_step():
                                              mutated["batch_stats"],
                                              out["points"])
     with pytest.MonkeyPatch.context() as mp_:
+        _no_remat(mp_)
         mp_.setattr(jcn, "_normalize_subsample", spy_sub)
         mp_.setattr(jcn, "feature_transform_aug",
                     _aug_spy(jcn.feature_transform_aug, augs))
@@ -368,8 +369,9 @@ def test_cnrma_step_check_catches_per_scene_statistics(cnrma_step,
 @pytest.fixture(scope="module")
 def atlas_step():
     """JAX's ``value_and_grad`` of the tiny Atlas's training forward on
-    the two scenes of ``batch_views``, and the port's batch (the
-    parameters of ``synthesize_parameters``, seed 1)."""
+    the two scenes of ``batch_views`` (its U-Net without the recompute,
+    ``_no_remat``), and the port's batch (the parameters of
+    ``synthesize_parameters``, seed 1)."""
     from test_pipeline import tiny_model
     from test_torch_stages import _flax_tree
     model, batch = tiny_model(detection=False, batch=B)
@@ -385,10 +387,12 @@ def atlas_step():
             batch, train=True, mutable=["batch_stats"])
         return sum(out["losses"].values()), (out["losses"],
                                              mutated["batch_stats"])
-    (loss, (losses, stats)), grads = jax.jit(
-        jax.value_and_grad(loss_fn, has_aux=True))(variables["params"])
-    want = jax.device_get({"loss": loss, "losses": losses, "stats": stats,
-                           "grads": grads})
+    with pytest.MonkeyPatch.context() as mp_:
+        _no_remat(mp_)
+        (loss, (losses, stats)), grads = jax.jit(
+            jax.value_and_grad(loss_fn, has_aux=True))(variables["params"])
+        want = jax.device_get({"loss": loss, "losses": losses,
+                               "stats": stats, "grads": grads})
     return want, state, _torch_batch(batch)
 
 

@@ -14,6 +14,7 @@ from cnrma_torch.bridge import from_flax
 from cnrma_torch.models.cn_rma import CNRMA as TorchCNRMA
 from cnrma_torch.models.fcaf3d import DetectionCapacities as TorchCaps
 from test_pipeline import tiny_model
+from _torch_threads import _few_threads  # noqa: F401
 
 
 def randomize_stats(variables, seed: int):

@@ -18,6 +18,7 @@ import torch
 from cnrma_tpu.models import cn_rma as jcn
 from test_pipeline import tiny_model
 from test_torch_bridge import tiny_torch_cnrma, torch_module
+from _torch_threads import _few_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

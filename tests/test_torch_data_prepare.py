@@ -35,17 +35,9 @@ sys.path.insert(0, REPO)
 from cnrma_torch import synthetic  # noqa: E402
 from cnrma_torch.geometry import tsdf_fusion as tfus  # noqa: E402
 from cnrma_tpu.geometry import tsdf_fusion as jfus  # noqa: E402
+from _torch_threads import _few_threads  # noqa: F401
 
 SCENE = "scene0000_00"
-
-
-@pytest.fixture(autouse=True)
-def _few_threads():
-    """Two torch threads: the test lane runs several workers a core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_argv(monkeypatch, module, argv):

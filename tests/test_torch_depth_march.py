@@ -25,18 +25,10 @@ from cnrma_tpu.ops import ray_marching as jrm
 from test_pipeline import tiny_model
 from test_torch_bridge import tiny_torch_cnrma
 from test_torch_stages import _flax_tree, _randomize_norms
+from _torch_threads import _few_threads  # noqa: F401
 
 DIMS, VOXEL, ORIGIN = (16, 16, 16), 0.1, (0.0, 0.0, 0.0)
 H, W = 16, 24
-
-
-@pytest.fixture(autouse=True)
-def _few_threads():
-    """Two torch threads: the test lane runs several workers a core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _ball_tsdf():

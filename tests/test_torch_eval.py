@@ -52,18 +52,10 @@ from test_pipeline import tiny_model
 from test_torch_bridge import tiny_torch_cnrma
 from test_torch_stages import (
     _flax_tree, _randomize_norms, points_case)  # noqa: F401
+from _torch_threads import _few_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "ray_marching_scannet.py")
-
-
-@pytest.fixture(autouse=True)
-def _few_threads():
-    """Two torch threads: the test lane runs several workers a core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _eval_step(model, variables, batch):

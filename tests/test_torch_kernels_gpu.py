@@ -6,7 +6,8 @@ nvcc).  Skipped where there is no CUDA device.
 The two main-path kernels are built with ``--fmad=false`` and sum in the
 same order as their plain versions, so ids, masks and counts must be equal;
 volumes agree to fp32 rounding (1e-6 absolute on features in [0, 1]) and,
-in bf16, to one bf16 ulp of the mean.  The volume's backward (K1b) sums
+in bf16, to one bf16 ulp of the mean; the volume kernel's sum mode (the
+fp32 sum, undivided) equals its plain version's bit for bit.  The volume's backward (K1b) sums
 with fp32 atomics in an order that changes from run to run: within 1e-5
 of the largest gradient, and one bf16 ulp more in bf16.  The ray-march
 kernel's NeuS weights take their cumulative sum in another order than
@@ -41,18 +42,23 @@ def cuda():
 
 
 def _volume_check(cuda, dtype, proj, feats, valid, dim, vs, origin):
-    """The volume kernel against its plain version; returns the valid
-    mask."""
+    """The volume kernel against its plain version, and its sum mode (a
+    rank's partial volume: the fp32 sum, undivided) bit for bit; returns
+    the valid mask."""
     args = (torch.from_numpy(proj).to(cuda), feats.to(cuda, dtype),
             valid.to(cuda), dim, vs, origin)
     vol, cnt, ok = bp.volume_accum_cuda(*args)
     pvol, pcnt, pok = bp.volume_accum_plain(*args)
+    total, scnt, sok = bp.volume_accum_cuda(*args, write_sum=True)
+    ptotal, _, _ = bp.volume_accum_plain(*args, write_sum=True)
     torch.cuda.synchronize()
     assert torch.equal(ok, pok) and torch.equal(cnt, pcnt)
     # fp32: rounding of the mean; bf16: one bf16 ulp of the mean
     tol = (1e-6 if dtype == torch.float32
            else 2.0 ** -7 * pvol.float().abs() + 1e-30)
     assert bool(((vol.float() - pvol.float()).abs() <= tol).all())
+    assert total.dtype == torch.float32 and torch.equal(total, ptotal)
+    assert torch.equal(scnt, pcnt) and torch.equal(sok, pok)
     return ok
 
 

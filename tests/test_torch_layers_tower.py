@@ -19,6 +19,7 @@ from cnrma_torch.models.resnet_fpn import ResNetFPN2D as TorchTower
 from cnrma_tpu.models import layers as jl
 from cnrma_tpu.models.resnet_fpn import ResNetFPN2D as JaxTower
 from test_torch_bridge import randomize_stats, torch_module
+from _torch_threads import _few_threads  # noqa: F401
 
 
 def to_cf(x: np.ndarray) -> torch.Tensor:

@@ -48,7 +48,7 @@ import cnrma_torch.tools.data_prepare.arkit_boxes
 import cnrma_torch.tools.data_prepare.load_arkit_data
 import cnrma_torch.tools.data_prepare.aggregate_data
 import cnrma_torch.tools.data_prepare.process_reconstruction
-import cnrma_torch.parallel.dist
+import cnrma_torch.parallel.dist, cnrma_torch.parallel.shard
 import chip_smoke
 from cnrma_torch.models.cn_rma import CNRMA
 from cnrma_torch.models.fcaf3d import DetectionCapacities

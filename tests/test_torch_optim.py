@@ -18,6 +18,7 @@ from cnrma_torch.train import optim as topt
 from cnrma_torch.train.state import TrainState, load_checkpoint, \
     save_checkpoint
 from cnrma_tpu.train import optim as jopt
+from _torch_threads import _few_threads  # noqa: F401
 
 SHAPES = {"tower2d/resnet/stem/conv/kernel": (3, 4),
           "tower2d/fuse/p2_head0/conv/kernel": (5,),

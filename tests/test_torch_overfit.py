@@ -13,15 +13,7 @@ import torch
 
 from cnrma_torch.tools import overfit_full as port_tool
 from tools import overfit_full as jax_tool
-
-
-@pytest.fixture(autouse=True)
-def _few_threads():
-    """Two torch threads: the test lane runs several workers a core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from _torch_threads import _few_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("yaw_max", [0.0, 0.6], ids=["axis", "yaw"])

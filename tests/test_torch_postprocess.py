@@ -21,6 +21,7 @@ from cnrma_tpu.ops import nms as j_nms
 from cnrma_torch.eval.indoor_eval import indoor_eval as t_indoor_eval
 from cnrma_torch.ops import iou3d as t_iou
 from cnrma_torch.ops import nms as t_nms
+from _torch_threads import _few_threads  # noqa: F401
 
 CONFIG = "configs/ray_marching_scannet.py"
 

@@ -23,6 +23,7 @@ import torch
 from cnrma_torch.ops import _build
 from cnrma_torch.tools import (bp_probe, feature_probe, gather_probe,
                                 trace_check)
+from _torch_threads import _few_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

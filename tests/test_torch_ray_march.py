@@ -23,6 +23,7 @@ import torch
 from cnrma_torch.ops import ray_marching as trm
 from cnrma_torch.synthetic import sphere_tsdf
 from cnrma_tpu.ops import ray_marching as jrm
+from _torch_threads import _few_threads  # noqa: F401
 
 DIM, VS, H, W = (64, 64, 32), 0.04, 24, 32
 

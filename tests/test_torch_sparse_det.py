@@ -22,6 +22,7 @@ from cnrma_torch.ops.voxelize import SENTINEL_KEY
 from cnrma_tpu.models import fcaf3d as jdet
 from cnrma_tpu.ops import sparse as jsp
 from test_torch_bridge import randomize_stats, torch_module
+from _torch_threads import _few_threads  # noqa: F401
 
 
 def _t(x):

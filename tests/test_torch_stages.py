@@ -30,6 +30,7 @@ from cnrma_torch.synthetic import (
 from test_pipeline import tiny_model
 from test_torch_train import (
     _drop_view_gradient, _step_failures, _step_readings, step_views)
+from _torch_threads import _few_threads  # noqa: F401
 
 T = torch.from_numpy
 _STATS = {"running_mean": "mean", "running_var": "var"}

@@ -21,6 +21,7 @@ import torch
 
 from test_data import make_synthetic_scannet
 from test_tools_contract import _write_scene
+from _torch_threads import _few_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "ray_marching_scannet.py")

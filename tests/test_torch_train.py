@@ -40,6 +40,7 @@ from test_pipeline import tiny_model
 from test_torch_bridge import randomize_stats, tiny_torch_cnrma, torch_module
 from test_torch_layers_tower import to_cf, to_cl
 from test_torch_test_cli import _flax_tree_from_torch
+from _torch_threads import _few_threads  # noqa: F401
 
 T = torch.from_numpy
 

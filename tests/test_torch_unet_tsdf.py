@@ -19,6 +19,7 @@ from cnrma_torch.models.unet3d import UNet3D as TorchUNet
 from cnrma_tpu.models.tsdf_head import TSDFHead as JaxHead
 from cnrma_tpu.models.unet3d import UNet3D as JaxUNet
 from test_torch_bridge import randomize_stats, torch_module
+from _torch_threads import _few_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -18,6 +18,7 @@ import torch
 from cnrma_torch.ops import backproject as tbp
 from cnrma_torch.synthetic import ring_projections
 from cnrma_tpu.ops import backproject as jbp
+from _torch_threads import _few_threads  # noqa: F401
 
 
 def simple_projection():

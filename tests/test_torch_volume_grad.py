@@ -19,6 +19,7 @@ import torch
 from cnrma_torch.ops import backproject as tbp
 from cnrma_tpu.ops import backproject as jbp
 from test_torch_volume import _scene
+from _torch_threads import _few_threads  # noqa: F401
 
 TOL = 1e-6
 
