@@ -29,15 +29,20 @@ capacity, so they get no report.
 
 A fill is computed on the device, and only when the flag is set; it is then
 read to the host, which syncs.  With the flag off nothing is computed or
-read, so the forward stays free of host syncs.
+read, so the forward stays free of host syncs.  ``LARGEST`` keeps each
+site's largest fill reported in this process, for a caller that wants the
+fills without reading the printed lines.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable
+from typing import Callable, Dict, Tuple
 
 import torch
+
+# site name -> (largest fill reported, its capacity); cleared by the caller
+LARGEST: Dict[str, Tuple[int, int]] = {}
 
 
 def enabled() -> bool:
@@ -50,10 +55,11 @@ def report(name: str, fill: Callable[[], torch.Tensor], capacity: int
     is set, one line per element of ``fill()``: the pre-clip counts, a
     0-dim tensor or one count per view.  ``fill`` is called only then.  A
     fill at or above the capacity means the buffer clipped or sits at the
-    brim."""
+    brim.  Each fill also raises the site's entry of ``LARGEST``."""
     if not enabled():
         return
     for n in torch.as_tensor(fill()).reshape(-1).tolist():
         n = int(n)
+        LARGEST[name] = max(LARGEST.get(name, (0, 0)), (n, capacity))
         print(f"[capacity] {name}: {n}/{capacity} "
               f"saturated={int(n >= capacity)}", flush=True)

@@ -161,9 +161,9 @@ def train_step(model: torch.nn.Module, optimizer: Optimizer,
     return log_vars
 
 
-def _scene_boxes(out: Dict[str, Any], batch: Dict[str, Any], i: int,
-                 with_yaw: bool, score_thr: float, iou_thr: float,
-                 device) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+def scene_boxes(out: Dict[str, Any], batch: Dict[str, Any], i: int,
+                with_yaw: bool, score_thr: float, iou_thr: float,
+                device) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Scene ``i``'s NMS-kept predictions and its GT, bottom-z, as
     ``indoor_eval`` takes them.  The GT keeps its yaw on a yaw model (the
     JAX function drops it: ROADMAP F15)."""
@@ -229,8 +229,8 @@ def _score_val(model: torch.nn.Module, val_loader, device, losses: bool,
                 found = {k: float(v) for k, v in out["losses"].items()}
                 found["total_loss"] = sum(v for k, v in found.items()
                                           if "loss" in k)
-            pairs = [_scene_boxes(out, batch, b, model.with_yaw, score_thr,
-                                  iou_thr, device)
+            pairs = [scene_boxes(out, batch, b, model.with_yaw, score_thr,
+                                 iou_thr, device)
                      for b in range(out["bboxes"].shape[0])] if boxes else []
             scenes.append((indices[0], found, pairs))
     finally:

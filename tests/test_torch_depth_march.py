@@ -9,6 +9,16 @@ tiny ``CNRMA`` with ``ray_marching_type='depth'``, its whole test forward
 against JAX's ``model.apply(train=False)`` with the same parameters and
 subsample draw: the point cloud (1e-5 on positions, 1e-4 of the scale on
 features) and the boxes and scores as sets (1e-4 of their scale).
+Last, the depth branch of the TRAINING forward (JAX ``CNRMA.ray_march``:
+the march on a given fine TSDF under ``stop_gradient``, the weight
+normalisation and subsample with JAX's uniform draw passed in, the
+pixel-feature gather and the weight multiply) against the port's
+``_march`` -> ``_point_cloud``: a scalar loss on the weighted features,
+its value and its gradient with respect to the feature maps, and the
+point sets (F6: sets, not slots).  And two depth training steps of the
+train CLI at cut sizes (no JAX in them): finite losses, a non-zero
+gradient in every trainable group (the 2D tower's too: the depth points
+carry gathered features) and a checkpoint that reloads.
 """
 
 import jax
@@ -179,3 +189,182 @@ def test_tiny_depth_forward_matches_jax(depth_points):
     assert len(wb) == len(gb) > 0
     np.testing.assert_allclose(gs, ws, atol=1e-4 * np.abs(ws).max())
     np.testing.assert_allclose(gb, wb, atol=1e-4 * np.abs(wb).max())
+
+
+# --- the depth branch of the training forward --------------------------------
+
+TRAIN_FEATS = 8             # feature-map channels of the training case
+TRAIN_POINTS = 150          # max_points: fewer than the kept samples
+NEAR_TIE = 1e-6             # |TSDF product| this close to the sign test
+
+
+def _train_case():
+    """Two views of 16x24 feature maps (the stride-4 maps of 64x96
+    images; the second camera moved and turned), random features and the
+    loss's weights (seed 3), and the ball TSDF."""
+    rng = np.random.RandomState(3)
+    p0 = _projection()
+    intr = np.array([[16.0, 0, W / 2], [0, 16.0, H / 2], [0, 0, 1]],
+                    np.float32)
+    c, s = np.cos(0.3), np.sin(0.3)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, :3] = [[c, 0, s], [0, 1, 0], [-s, 0, c]]
+    pose[:3, 3] = [0.3, 0.75, -0.5]
+    p1 = (intr @ np.linalg.inv(pose)[:3]).astype(np.float32)
+    proj = np.stack([p0, p1])
+    proj[:, :2] *= 4                       # full-resolution projections
+    feats = rng.randn(1, 2, H, W, TRAIN_FEATS).astype(np.float32)
+    coef = rng.randn(TRAIN_FEATS).astype(np.float32)
+    axis = (rng.randn(3) * 0.3).astype(np.float32)
+    return feats, proj[None], _ball_tsdf()[None], coef, axis
+
+
+def _near_tie_pixels(proj, tsdf, view_index, n_samples):
+    """The pixels (flat ``v * H * W + row * W + col``) of one view whose
+    ray has a TSDF product within ``NEAR_TIE`` of 0: the sign test there
+    may round either way."""
+    o, d = jrm.get_ray_parameters(jnp.asarray(proj[:, :] / np.array(
+        [[4.0], [4.0], [1.0]], np.float32)), H, W)
+    t_max = np.sqrt(sum(n * n for n in DIMS)) * VOXEL
+    ts = np.arange(n_samples, dtype=np.float32) * np.float32(t_max
+                                                             / n_samples)
+    places = np.asarray(o)[None, None] + np.asarray(d)[:, None] \
+        * ts[None, :, None]
+    vals, _ = jrm._sample_tsdf(jnp.asarray(tsdf), jnp.asarray(
+        places.reshape(-1, 3)), jnp.asarray(ORIGIN, jnp.float32), VOXEL)
+    tv = np.asarray(vals).reshape(H * W, n_samples)
+    prod = tv[:, :-1] * tv[:, 1:]
+    near = (np.abs(prod) <= NEAR_TIE).any(axis=1)
+    return view_index * H * W + np.flatnonzero(near)
+
+
+@pytest.mark.parametrize("depth_points", [2, 0])
+def test_depth_training_branch_matches_jax(depth_points):
+    """The training forward's depth branch, JAX's ``CNRMA.ray_march``
+    (jitted once with its gradient) against the port's ``ray_march``
+    (``_march`` -> ``_point_cloud``), on the same feature maps, ball TSDF
+    and subsample draw: the kept points as sets (positions 1e-5, weighted
+    features 1e-5 of their scale), the loss ``sum((feats @ c) * (1 +
+    xyz @ a))`` within 1e-5 relative and its gradient with respect to the
+    feature maps within 1e-5 of its scale; pixels whose ray has a TSDF
+    product within ``NEAR_TIE`` of the sign test are left out."""
+    feats, proj, tsdf, coef, axis = _train_case()
+    kw = dict(ray_marching_type="depth", depth_points=depth_points,
+              ray_samples=300, rays_per_view_cap=4096,
+              max_points=TRAIN_POINTS)
+    model = tiny_model()[0].clone(**kw)
+    draws = []
+    orig = jcn._normalize_subsample
+
+    def spy(flat, rng_b, max_points):
+        r = jax.random.uniform(rng_b, (flat.weight.shape[0],))
+        jax.debug.callback(lambda x: draws.append(np.asarray(x)), r)
+        return orig(flat, rng_b, max_points)
+
+    def loss(f, t):
+        pts = model.apply({}, f, jnp.asarray(proj), jnp.ones((1, 2), bool),
+                          t, jnp.zeros((1, 3)), jax.random.PRNGKey(5),
+                          method=jcn.CNRMA.ray_march)
+        value = jnp.sum((pts.feats @ coef) * (1 + pts.xyz @ axis))
+        return value, (pts.xyz, pts.feats, pts.valid)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jcn, "_normalize_subsample", spy)
+        (want, (wxyz, wpf, wv)), wgrad = jax.device_get(jax.jit(
+            jax.value_and_grad(loss, has_aux=True))(feats, tsdf))
+    port = tiny_torch_cnrma(**kw)
+    f_t = torch.from_numpy(feats).requires_grad_(True)
+    pts = port.ray_march(f_t, torch.from_numpy(proj),
+                         torch.ones(1, 2, dtype=torch.bool),
+                         torch.from_numpy(tsdf),
+                         uniform=torch.from_numpy(draws[0])[None])
+    got = torch.sum((pts.feats @ torch.from_numpy(coef))
+                    * (1 + pts.xyz @ torch.from_numpy(axis)))
+    got.backward()
+    ggrad = f_t.grad.numpy()
+
+    ties = np.concatenate([_near_tie_pixels(proj[0, v], tsdf[0], v, 300)
+                           for v in range(2)])
+    keep = np.ones(2 * H * W, bool)
+    keep[ties] = False
+    n_kept = int(wv.sum())
+    print(f"depth_points {depth_points}: {n_kept} of {TRAIN_POINTS} points "
+          f"kept; {len(ties)} pixels near the sign test")
+    assert n_kept == TRAIN_POINTS and len(ties) < 0.05 * 2 * H * W
+
+    def rows(xyz, pf, v):
+        a = np.concatenate([xyz[0][v[0]], pf[0][v[0]]], 1)
+        return a[np.lexsort(a[:, 2::-1].T)]
+    gv = pts.valid.numpy()
+    a = rows(pts.xyz.detach().numpy(), pts.feats.detach().numpy(), gv)
+    b = rows(wxyz, wpf, wv)
+    assert a.shape == b.shape
+    np.testing.assert_allclose(a[:, :3], b[:, :3], atol=1e-5)
+    np.testing.assert_allclose(a[:, 3:], b[:, 3:],
+                               atol=1e-5 * np.abs(b[:, 3:]).max())
+    rel = abs(float(got) / float(want) - 1)
+    g = ggrad.reshape(2 * H * W, -1)[keep]
+    w = np.asarray(wgrad).reshape(2 * H * W, -1)[keep]
+    err = float(np.abs(g - w).max() / np.abs(w).max())
+    print(f"loss {float(want):.6g}, relative error {rel:.3g}; feature "
+          f"gradient error {err:.3g} of its scale, "
+          f"{int((np.abs(w) > 0).any(1).sum())} pixels carry it")
+    assert rel < 1e-5 and err < 1e-5
+
+
+# every trainable group of CNRMA, each of which a depth step must reach
+TRAIN_GROUPS = ("tower2d.resnet.", "tower2d.fpn.", "tower2d.fuse.",
+                "backbone3d.", "tsdf_head.", "detector.backbone.",
+                "detector.head.")
+
+
+def test_depth_training_steps_through_the_cli(tmp_path, monkeypatch):
+    """``python -m cnrma_torch.tools.train configs/ray_marching_scannet.py
+    --device cpu --max-steps 2 --cfg-options model.ray_marching_type=depth
+    model.depth_points=2`` at cut sizes: two steps with finite losses and
+    positives, each step's gradient non-zero in every trainable group, and
+    the checkpoint loads into the test model."""
+    import os
+    import shutil
+    from cnrma_torch.synthetic import write_scannet
+    from cnrma_torch.tools import test as test_cli
+    from cnrma_torch.tools import train as train_cli
+    from cnrma_torch.train.optim import Optimizer
+    data = str(tmp_path / "data")
+    ann = write_scannet(data, n_scenes=1, n_frames=3, tsdf_dim=(32, 32, 16),
+                        image_size=(128, 96))
+    train = os.path.join(data, "scannet_infos_train.pkl")
+    shutil.copy(ann, train)
+    norms = []
+    step = Optimizer.step
+
+    def spy(self, grads):
+        norms.append({g: float(sum(float(t.float().square().sum())
+                                   for n, t in grads.items()
+                                   if n.startswith(g) and t is not None))
+                      for g in TRAIN_GROUPS})
+        return step(self, grads)
+    monkeypatch.setattr(Optimizer, "step", spy)
+    cfg = "configs/ray_marching_scannet.py"
+    records, ckpt = train_cli.main([
+        cfg, "--device", "cpu", "--max-steps", "2", "--work-dir",
+        str(tmp_path / "wd"), "--cfg-options", f"data.train.data_root={data}",
+        f"data.train.ann_file={train}", "data.train.num_frames=2",
+        "data.train.image_size=(64,32)", "model.voxel_dim_train=(16,16,16)",
+        "data.train.voxel_dim=(16,16,16)", "model.ray_samples=32",
+        "model.rays_per_view_cap=64", "model.max_points=128",
+        "model.ray_marching_type=depth", "model.depth_points=2",
+        "model.capacities={'voxelize':256,'stride2':128,'stride4':64,"
+        "'levels':(32,16,8,8),'neck':(64,32,16)}"])
+    assert len(records) == 2 and len(norms) == 2
+    for r, n in zip(records, norms):
+        print(f"depth step {r['step']}: {r['log_vars']}; squared gradient "
+              f"norms {n}")
+        assert all(np.isfinite(v) for v in r["log_vars"].values())
+        assert r["log_vars"]["loss_bbox"] > 0
+        assert all(v > 0 for v in n.values()), n
+    cfg_t = Config.fromfile(cfg)
+    cfg_t.merge_from_options({"model.ray_marching_type": "depth"})
+    from cnrma_torch.core.builder import build_model
+    model = build_model(cfg_t, mode="test")
+    assert test_cli.load_parameters(model, ckpt, 0) == 0
+    os.remove(ckpt)

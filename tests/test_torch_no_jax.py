@@ -2,9 +2,11 @@
 unavailable, as on a GPU machine that has none of them: a tiny forward,
 then the test CLI, ``nms_bbox`` and ``evaluate_bbox`` on one tiny synthetic
 scene, and one step of the train CLI on it, whose checkpoint the test CLI
-loads; the three-stage recipe on such a scene, one step a stage; the
-ARKit yaw path on a tiny synthetic ARKitScenes scene; and ScanNet's data
-preparation from a tiny synthetic ``.sens`` and scan."""
+loads, and two steps of the detector-only learning check; the three-stage
+recipe on such a scene, one step a stage, stage 3 with depth marching;
+the ARKit yaw path on a tiny synthetic ARKitScenes scene, stage 1 first;
+and ScanNet's data preparation from a tiny synthetic ``.sens`` and
+scan."""
 
 import os
 import subprocess
@@ -40,6 +42,7 @@ import cnrma_torch.convert, cnrma_torch.data.points_dataset
 import cnrma_torch.eval.mesh_eval, cnrma_torch.models.fcaf3d_only
 import cnrma_torch.tools.combine_models, cnrma_torch.tools.evaluate_mesh
 import cnrma_torch.tools.overflow_survey, cnrma_torch.tools.overfit_full
+import cnrma_torch.tools.overfit_check
 import cnrma_torch.geometry.tsdf_fusion, cnrma_torch.tools.visualize_results
 import cnrma_torch.tools.data_prepare.extract_posed_images
 import cnrma_torch.tools.data_prepare.generate_tsdf
@@ -120,6 +123,11 @@ test_cli.main([
     f"data.test.ann_file={ann}", "data.test.num_frames=2",
     "data.test.image_size=(64,32)", "model.voxel_dim_test=(16,16,16)",
     "data.test.voxel_dim=(16,16,16)", *small])
+
+# the detector-only learning check, two steps
+from cnrma_torch.tools import overfit_check
+out = overfit_check.run(["--steps", "2", "--device", "cpu"])
+assert out["steps"] == 2 and np.isfinite([out["first"], out["final"]]).all()
 loaded = [m for m in ("jax", "flax", "cnrma_tpu") if sys.modules.get(m)]
 assert not loaded, loaded
 print("NO_JAX_OK")
@@ -215,11 +223,14 @@ rec, s2 = train_cli.main([
     "'levels':(256,128,64,32),'neck':(512,256,128)}"])
 assert set(rec[0]["log_vars"]) >= {"loss_cls", "grad_norm"}
 
-# the merge, one stage-3 step from it, and the test CLI on its checkpoint
+# the merge, one stage-3 step from it (depth marching), and the test CLI
+# on its checkpoint
 merged = os.path.join(root, "merged.pt")
 combine_models.main(["--recon", s1, "--detector", s2, "--output", merged])
 rec, s3 = train_cli.main([cfg("ray_marching_scannet.py"), "--load-from",
-                          merged, *run("s3"), *train, *small])
+                          merged, *run("s3"), *train, *small,
+                          "model.ray_marching_type=depth",
+                          "model.depth_points=2"])
 assert all(np.isfinite(v) for v in rec[0]["log_vars"].values())
 test_cli.main([cfg("ray_marching_scannet.py"), s3, "--device", "cpu",
                "--save-path", os.path.join(root, "res3"), "--cfg-options",
@@ -235,8 +246,9 @@ def test_three_stage_recipe_runs_without_jax():
     run, ``evaluate_mesh``), the stage-2.1 dump (``configs/
     scannet_middle.py`` from the stage-1 checkpoint), stage 2
     (``configs/fcaf3d_middle_scannet.py`` on synthetic dumps), the merge,
-    one stage-3 step from it and the test CLI on its checkpoint, at cut
-    sizes on the CPU with JAX, flax and the JAX package blocked."""
+    one stage-3 step from it with depth marching and the test CLI on its
+    checkpoint, at cut sizes on the CPU with JAX, flax and the JAX package
+    blocked."""
     proc = _run(_RECIPE)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "RECIPE_OK" in proc.stdout
@@ -286,14 +298,22 @@ m = evaluate_bbox.main(["--dataset", "arkit", "--data_path", data,
                         "--result_path", res, "--device", "cpu"])
 assert {"mAP_0.25", "mAP_0.50", "table_AP_0.25"} <= set(m)
 
-# the stage-2.1 dump feeds one stage-2 step, then one stage-3 step
+# stage 1 (Atlas, bf16, Adam) for two steps; its checkpoint's stage-2.1
+# dump feeds one stage-2 step, then one stage-3 step
+run = lambda *a: ["--device", "cpu", "--max-steps", "1", "--work-dir",
+                  os.path.join(root, *a), "--cfg-options"]
+rec, s1 = train_cli.main([
+    cfg("atlas_recon_arkit.py"), "--device", "cpu", "--max-steps", "2",
+    "--work-dir", os.path.join(root, "s1"), "--cfg-options",
+    *[f"data.train.{o}" for o in views],
+    f"data.train.ann_file={train}", "model.voxel_dim_train=(32,32,16)"])
+assert len(rec) == 2 and "tsdf_loss_004" in rec[0]["log_vars"]
+assert all(np.isfinite(v) for r in rec for v in r["log_vars"].values())
 mid = os.path.join(root, "mid")
-test_cli.main([cfg("arkit_middle.py"), "--device", "cpu", "--save-path",
+test_cli.main([cfg("arkit_middle.py"), s1, "--device", "cpu", "--save-path",
                os.path.join(root, "res21"), "--middle-save-path", mid,
                "--cfg-options", *test, f"data.test.ann_file={train}", *small])
 assert len(np.load(os.path.join(mid, scene + "_vert.npy"))) > 0
-run = lambda *a: ["--device", "cpu", "--max-steps", "1", "--work-dir",
-                  os.path.join(root, *a), "--cfg-options"]
 rec, _ = train_cli.main([
     cfg("fcaf3d_middle_arkit.py"), *run("s2"), f"data.train.data_root={data}",
     f"data.train.ann_file={train}", f"data.train.points_dir={mid}",
@@ -315,8 +335,9 @@ def test_arkit_path_runs_without_jax():
     """The ARKit yaw path at cut sizes on the CPU with JAX, flax and the JAX
     package blocked: the test CLI on ``configs/ray_marching_arkit.py`` (7-column
     raw boxes, 17 classes), ``nms_bbox`` and ``evaluate_bbox --dataset
-    arkit``; the stage-2.1 dump of ``configs/arkit_middle.py`` and one
-    stage-2 step on it (``configs/fcaf3d_middle_arkit.py``); one stage-3
+    arkit``; two stage-1 steps (``configs/atlas_recon_arkit.py``), the
+    stage-2.1 dump of ``configs/arkit_middle.py`` from their checkpoint
+    and one stage-2 step on it (``configs/fcaf3d_middle_arkit.py``); one stage-3
     step (finite losses, ``loss_bbox`` the rotated IoU's)."""
     proc = _run(_ARKIT)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -27,13 +27,18 @@ once, under one time limit, while JAX's references are computed here).
     ``STEP_LIMITS``: the untrained tower is chaotic in fp32 (ROADMAP F6),
     so the 2D tower's gradients are held as groups (relative L2 error) and
     every leaf by its cosine, as ``test_torch_train.py`` does;
+(e') the tiny ``Atlas`` step (stage 1) with ``--view-shards 2``'s split on
+    two ranks against the one-process ``Atlas`` step (itself held against
+    JAX in ``test_torch_stages.py``) at ``ATLAS_LIMITS``, the limits of
+    a recon-only step on the card: the TSDF losses, the U-Net's and TSDF head's
+    gradients as groups, the 2D tower's groups;
 (f) ``tools/test.py --view-shard`` on two ranks writes the files of the
     one-rank run within ``CLI_TOL``; ``tools/train.py --view-shards 2``
     takes a step and scores the val split (the test forward's view
     sharding) within ``CLI_LOSS_RTOL`` of the one-process CLI; both CLIs
     refuse what JAX's refuse.
 
-Planted faults break (a), (c) and (e): batch norms that do not sync their
+Planted faults break (a), (c), (e) and (e'): batch norms that do not sync their
 statistics, and a boundary whose backward sums the n copies of the
 replicated cotangent (the collective's plain transpose).
 """
@@ -74,6 +79,14 @@ STEP_LIMITS = {"losses": 1e-5, "tsdf": 1e-5, "stats": 1e-5,
                "group_err": 0.01, "leaf_cos": 0.999}
 STEP_GROUPS = ("tower2d.resnet.", "tower2d.fpn.", "tower2d.fuse.",
                "backbone3d.", "tsdf_head.", "detector.")
+# the view-sharded Atlas step against the one-process one: the TSDF losses
+# (relative), the U-Net's and head's gradients and the 2D tower's, each
+# group as one vector (relative L2 error); the limits of the recon-only step
+# on the card (``chip_smoke.py``'s VIEW_TSDF_TOL, VIEW_GROUP_TOL,
+# VIEW_TOWER_TOL)
+ATLAS_LIMITS = {"tsdf_losses": 1e-5, "unet_head": 3e-3, "tower": 0.05}
+ATLAS_GROUPS = {"unet_head": ("backbone3d.", "tsdf_head."),
+                "tower": ("tower2d.resnet.", "tower2d.fpn.", "tower2d.fuse.")}
 CLI_TOL = 1e-4              # the CLI's TSDF and boxes, of their scale
 CLI_LOSS_RTOL = 1e-4
 
@@ -550,6 +563,19 @@ def _step_case():
     return model.train(), batch
 
 
+def _atlas_case():
+    """The tiny ``Atlas`` of ``test_torch_stages.py`` (16^3 grid at 10 cm,
+    ``synthesize_parameters`` seed 1) on ``_step_case``'s two 64x64 views
+    and TSDF targets."""
+    from cnrma_torch.models.cn_rma import Atlas
+    from cnrma_torch.synthetic import synthesize_parameters
+    model = Atlas(voxel_dim=(16, 16, 16), voxel_size=0.1)
+    synthesize_parameters(model, 1)
+    _, batch = _step_case()
+    return model.train(), {k: v for k, v in batch.items()
+                           if not k.startswith("gt_")}
+
+
 def _step(case, group, fault=None):
     """One training forward and backward of ``case`` (``_step_case``, its
     parameters and statistics restored first): view-sharded under a
@@ -618,9 +644,43 @@ def _step_rank(out):
             report["readings"][str(fault)] = _step_readings(got, want)
             report["loss_cls"] = want["losses"]["loss_cls"]
         del got
+    model, batch = _atlas_case()
+    case = (model, batch, {k: v.clone() for k, v in
+                           model.state_dict().items()})
+    want = _step(case, None) if rank == 0 else None
+    report["atlas"] = {}
+    for fault in (None, "sum_copies"):
+        got = _step(case, group, fault)
+        if fault is None:
+            report["atlas_digest"] = _digest(got)
+        if want is not None:
+            report["atlas"][str(fault)] = _atlas_readings(got, want)
     with open(os.path.join(out, f"step_{rank}.json"), "w") as f:
         json.dump(report, f)
     dist.shutdown(group)
+
+
+def _atlas_readings(got, want):
+    """``ATLAS_LIMITS``' readings of ``got`` against ``want``: the largest
+    relative TSDF loss difference, and each kind's worst group (relative
+    L2 error), each with its name."""
+    r = {"tsdf_losses": max((abs(got["losses"][k] - w) / max(abs(w), 1e-30),
+                             k) for k, w in want["losses"].items()
+                            if k.startswith("tsdf_loss"))}
+    for kind, prefixes in ATLAS_GROUPS.items():
+        errs = []
+        for prefix in prefixes:
+            keys = [k for k in want["grads"] if k.startswith(prefix)]
+            a = np.concatenate([got["grads"][k].ravel() for k in keys])
+            b = np.concatenate([want["grads"][k].ravel() for k in keys])
+            errs.append((float(np.linalg.norm(a - b)
+                               / max(np.linalg.norm(b), 1e-30)), prefix))
+        r[kind] = max(errs)
+    return r
+
+
+def _atlas_failures(r):
+    return sorted(k for k, lim in ATLAS_LIMITS.items() if r[k][0] > lim)
 
 
 def _step_readings(got, want):
@@ -893,6 +953,30 @@ def test_planted_faults_break_the_step_limits(runs, fault):
     r = _step_report(out, 0)["readings"][fault]
     print(f"{fault}: breaks {_step_failures(r)}; readings {r}")
     assert _step_failures(r), r
+
+
+def test_view_sharded_atlas_step_matches_one_process(runs):
+    """Stage 1's step split over two ranks (1 view each, X-slabs of 8)
+    against the one-process ``Atlas`` step at ``ATLAS_LIMITS``; both ranks
+    end with the same gradients and statistics."""
+    out, codes, _ = runs
+    assert codes["step"] == [0, 0]
+    ranks = [_step_report(out, r) for r in range(2)]
+    assert not ranks[1]["atlas"]
+    r = ranks[0]["atlas"]["None"]
+    print("view-sharded Atlas step readings:", r)
+    assert not _atlas_failures(r), r
+    assert ranks[0]["atlas_digest"] == ranks[1]["atlas_digest"]
+
+
+def test_planted_boundary_fault_breaks_the_atlas_limits(runs):
+    """The boundary that sums the n copies of the replicated cotangent
+    breaks the Atlas step's gradient limits."""
+    out, codes, _ = runs
+    assert codes["step"] == [0, 0]
+    r = _step_report(out, 0)["atlas"]["sum_copies"]
+    print(f"sum_copies, Atlas: breaks {_atlas_failures(r)}; readings {r}")
+    assert {"unet_head", "tower"} <= set(_atlas_failures(r)), r
 
 
 def _load_all(path):
