@@ -147,7 +147,8 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
      planted to sum the ranks' copies must break them; seconds, peaks
      and stage times); on several cards also stage 3 on a rank a card
      and the view-sharded paths across cards (``phase_view_cards``: stage
-     3 at 40 views and stage 1 at 50 on two cards against one card).
+     3 at 40 views, with NeuS and depth marching and on ARKit's config,
+     and stage 1 at 50 on two cards against one card).
   batch. training batches of two scenes, on phase 6f's scenes and dumps:
      the tiny fp32 step of phase 6d at two scenes on the GPU against the
      CPU at ``TRAIN_LIMITS`` (the 3D U-Net held as a group, like the
@@ -3184,38 +3185,73 @@ def _check_view_ranks(ranks: list, how: str, reference: dict,
 def _view_cards(root: str, data: str, ann: str, cards: int,
                 counters: dict) -> None:
     """One scene across cards (NCCL, a card a rank): the train CLI with
-    ``--view-shards 2`` at the config's 40 views for 2 steps (each rank's
-    seconds and peak), step 1's TSDF losses within ``VIEW_TSDF_TOL`` of
-    the same CLI's on one card in this process; stage 1 alike
-    (``_view_stage1``); with four cards
-    ``--view-shards 2`` at world 4 and two scenes a step (2 data rows x 2
-    view ranks, 40 views a scene, which one card cannot hold); the test
-    CLI's ``--view-shard`` over the cards
-    against the one-card CLI on the same two scenes at the test width
-    (forward seconds a scene, TSDFs within ``VIEW_CLI_TOL``)."""
+    ``--view-shards 2`` at the config's 40 views for 2 steps against the
+    same CLI on one card in this process (``_view_against_one``); the same
+    with depth marching and on ARKit's config (``_view_variants``); with
+    four cards ``--view-shards 2`` at world 4 and two scenes a step (2 data
+    rows x 2 view ranks, 40 views a scene, which one card cannot hold);
+    stage 1 alike (``_view_stage1``); the test CLI's ``--view-shard`` over
+    the cards against the one-card CLI on the same two scenes at the test
+    width (forward seconds a scene, TSDFs within ``VIEW_CLI_TOL``)."""
     s3 = ["--max-steps", "2", "--cfg-options", f"data.train.data_root={data}",
           f"data.train.ann_file={ann}", "evaluation=None",
           "log_config.interval=1"]
     want = {"volume_accum": 0, "volume_accum_sum": 2, "volume_accum_bwd": 2,
             "ray_march": 2}
-    one, _, _, _ = _run_train_cli(
-        [CLI_CONFIG, "--work-dir", os.path.join(root, "view_40_one")] + s3,
-        counters, 2, "view 40 one card")
-    got = _world_n(root, "view 40", [CLI_CONFIG, "--view-shards", "2"] + s3,
-                   2, want)
-    tsdf = {k: (abs(got[0]["log_vars"][k] - v) / max(abs(v), 1e-30))
-            for k, v in one[0]["log_vars"].items()
-            if k.startswith("tsdf_loss")}
-    log(f"[view] 40 views, step 1's TSDF losses on two cards against one "
-        f"card, relative: {tsdf} (tol {VIEW_TSDF_TOL})")
-    if not tsdf or max(tsdf.values()) > VIEW_TSDF_TOL:
-        raise AssertionError("[view] the 40-view step on two cards is not "
-                             "the one-card step")
+    _view_against_one(root, "view 40", CLI_CONFIG, s3, counters, want)
+    _view_variants(root, s3, counters)
     if cards >= 4:
         _world_n(root, "view 2x2", [CLI_CONFIG, "--view-shards", "2",
                                     "--batch-size", "2"] + s3, 4, want)
     _view_stage1(root, s3[3:], counters)
     _view_test_cli(root, data, ann, cards)
+
+
+def _view_against_one(root: str, tag: str, config: str, argv, counters,
+                      want: dict, tol: float = VIEW_TSDF_TOL) -> None:
+    """The train CLI on ``config`` with ``argv`` (2 steps) on one card in
+    this process, then with ``--view-shards 2`` on two NCCL cards
+    (``_world_n``: each rank launches ``want``, the ranks end equal): step
+    1's TSDF losses within ``tol`` of one card's, relative; each run's
+    step seconds and peak memory."""
+    one, _, _, _ = _run_train_cli(
+        [config, "--work-dir", os.path.join(root, tag.replace(" ", "_")
+                                            + "_one")] + argv,
+        counters, 2, tag + " one card")
+    got = _world_n(root, tag.replace(" ", "_"),
+                   [config, "--view-shards", "2"] + argv, 2, want)
+    tsdf = {k: (abs(got[0]["log_vars"][k] - v) / max(abs(v), 1e-30))
+            for k, v in one[0]["log_vars"].items()
+            if k.startswith("tsdf_loss")}
+    log(f"[view] {tag}: step 1's TSDF losses on two cards against one "
+        f"card, relative: {tsdf} (tol {tol}); step 2 on two cards "
+        f"{got[-1]['step_s']:.3f} s, peak {got[-1]['peak_gib'] or 0:.2f} "
+        f"GiB (rank 0), on one {one[-1]['step_s']:.3f} s, peak "
+        f"{one[-1]['peak_gib'] or 0:.2f} GiB ({card()})")
+    if not tsdf or max(tsdf.values()) > tol:
+        raise AssertionError(f"[view] {tag}: the step on two cards is not "
+                             f"the one-card step")
+
+
+def _view_variants(root: str, s3, counters) -> None:
+    """``_view_against_one`` for the stage-3 step with depth marching (the
+    ScanNet scenes of ``s3``, 40 views; K2 never) and for ARKit's 7-DoF
+    config (``configs/ray_marching_arkit.py``, 40 views of 480x640, on two
+    synthetic ARKit scenes of 60 frames written under ``root``)."""
+    from cnrma_torch.synthetic import write_arkit
+    _view_against_one(root, "view depth", CLI_CONFIG,
+                      s3 + ["model.ray_marching_type=depth"], counters,
+                      {"volume_accum": 0, "volume_accum_sum": 2,
+                       "volume_accum_bwd": 2, "ray_march": 0})
+    data = os.path.join(root, "arkit")
+    val = write_arkit(data, n_scenes=2, n_frames=60)
+    train = os.path.join(data, "arkit_infos_train.pkl")
+    shutil.copy(val, train)
+    _view_against_one(root, "view arkit", ARKIT_CONFIG,
+                      s3[:3] + [f"data.train.data_root={data}",
+                                f"data.train.ann_file={train}"] + s3[5:],
+                      counters, {"volume_accum": 0, "volume_accum_sum": 2,
+                                 "volume_accum_bwd": 2, "ray_march": 2})
 
 
 # stage 1's TSDF losses on two cards against one card in its own bf16: the
@@ -3227,32 +3263,18 @@ VIEW_BF16_TOL = 2.0 ** -9
 def _view_stage1(root: str, opts, counters) -> None:
     """Stage 1 (``configs/atlas_recon_scannet.py``: 50 views, 160x160x64)
     with ``--view-shards 2`` on two NCCL cards for 2 steps against the same
-    CLI on one card in this process, in fp32 (step 1's TSDF losses within
-    ``VIEW_TSDF_TOL``) and in the config's bf16 (within
-    ``VIEW_BF16_TOL``); K1's sum mode and K1b once a step a rank, K2
-    never."""
+    CLI on one card in this process (``_view_against_one``), in fp32 (step
+    1's TSDF losses within ``VIEW_TSDF_TOL``) and in the config's bf16
+    (within ``VIEW_BF16_TOL``); K1's sum mode and K1b once a step a rank,
+    K2 never."""
     for dtype, tol in (("float32", VIEW_TSDF_TOL), ("bfloat16",
                                                      VIEW_BF16_TOL)):
-        argv = ["--max-steps", "2", "--cfg-options", *opts,
-                f"model.compute_dtype={dtype}"]
-        tag = f"view stage 1 {dtype}"
-        one, _, _, _ = _run_train_cli(
-            [STAGE1_CONFIG, "--work-dir", os.path.join(root, tag.replace(
-                " ", "_") + "_one")] + argv, counters, 2, tag + " one card")
-        got = _world_n(root, tag.replace(" ", "_"),
-                       [STAGE1_CONFIG, "--view-shards", "2"] + argv, 2,
-                       {"volume_accum": 0, "volume_accum_sum": 2,
-                        "volume_accum_bwd": 2, "ray_march": 0})
-        tsdf = {k: (abs(got[0]["log_vars"][k] - v) / max(abs(v), 1e-30))
-                for k, v in one[0]["log_vars"].items()
-                if k.startswith("tsdf_loss")}
-        log(f"[view] stage 1 in {dtype}, 50 views: step 1's TSDF losses on "
-            f"two cards against one card, relative: {tsdf} (tol {tol}); a "
-            f"step on two cards {got[-1]['step_s']:.3f} s, on one "
-            f"{one[-1]['step_s']:.3f} s ({card()})")
-        if not tsdf or max(tsdf.values()) > tol:
-            raise AssertionError(f"[view] stage 1's step in {dtype} on two "
-                                 f"cards is not the one-card step")
+        _view_against_one(
+            root, f"view stage 1 {dtype}", STAGE1_CONFIG,
+            ["--max-steps", "2", "--cfg-options", *opts,
+             f"model.compute_dtype={dtype}"], counters,
+            {"volume_accum": 0, "volume_accum_sum": 2,
+             "volume_accum_bwd": 2, "ray_march": 0}, tol)
 
 
 VIEW_CLI_TOL = 1e-4         # the --view-shard test CLI's TSDF, absolute

@@ -6,7 +6,8 @@ Tolerances: IoU matrices 1e-5 (fp32, the same clip on both sides); NMS keep
 masks and outputs equal; mAP 1e-6 against ``indoor_eval`` and the
 hand-computed values of ``tests/test_eval_ap.py`` at their own tolerances;
 builder knobs equal; marching-cubes faces equal and vertices and normals
-within 1e-5; TSDF resample equal to the numpy path; capacity lines equal.
+within 1e-5; TSDF resample at ``resample_failures``' rule against the
+numpy path; capacity lines equal.
 """
 
 import jax
@@ -283,10 +284,86 @@ def test_marching_cubes(kind):
     np.testing.assert_allclose(got[2], want[2], atol=1e-5)
 
 
+# The resample's rule.  The reference maps the grid through the transform
+# with numpy's ``@``, an OpenBLAS sgemm whose kernel the host picks: the
+# FMA kernels (Haswell, SkylakeX, Zen) and the plain one (Sandybridge) put
+# a rotated grid's sample positions up to 2 ulp apart, and the port's
+# torch ``@`` rounds as the plain one.  Measured between the two kernels
+# (child processes with ``OPENBLAS_CORETYPE``, AMD EPYC with AVX-512): the
+# TSDF values up to 1.01 ulp of the farthest sample position times the
+# volume's largest neighbour step apart, no nearest pick changed.  Held:
+# every value within 1.5 such ulp-steps; a voxel beyond that only where
+# its sample lies within 4 ulp (twice the positions' spread) of a .5
+# boundary, where the nearest pick or the out-of-volume test (at -0.5 and
+# n - 0.5) may go either way, and at most one voxel in a thousand.
+RESAMPLE_ULP_STEPS = 1.5
+RESAMPLE_TIE_ULPS = 4
+RESAMPLE_MAX_TIES = 1e-3
+
+
+def record_samples(monkeypatch, shift=0.0):
+    """A list that collects each resample of the port's ``TSDF.transform``:
+    its sample positions [3, P] (float64) and source volume; ``shift``
+    (voxels) is planted into the positions both samplers read."""
+    from cnrma_torch.geometry import tsdf
+    seen = []
+    nearest, trilinear = tsdf._sample_nearest, tsdf._sample_trilinear
+
+    def spy(vol, sample):
+        seen.append((sample.double().numpy(), vol.numpy()))
+        return nearest(vol, sample + shift)
+    monkeypatch.setattr(tsdf, "_sample_nearest", spy)
+    monkeypatch.setattr(tsdf, "_sample_trilinear",
+                        lambda vol, sample: trilinear(vol, sample + shift))
+    return seen
+
+
+def resample_failures(got, want, sample, vol):
+    """What breaks the resample rule (``RESAMPLE_*``): the port's ``got``
+    against the reference's ``want`` [X, Y, Z], resampled from ``vol`` at
+    ``sample`` [3, X*Y*Z]."""
+    ulp = float(np.spacing(np.float32(np.abs(sample).max())))
+    step = max(float(np.abs(np.diff(vol.astype(np.float64), axis=a)).max())
+               for a in range(vol.ndim))
+    limit = RESAMPLE_ULP_STEPS * ulp * step
+    off = (np.abs(got.astype(np.float64) - want) > limit).ravel()
+    tie = (np.abs(sample - np.floor(sample) - 0.5)
+           <= RESAMPLE_TIE_ULPS * ulp).any(0)
+    bad = []
+    if (off & ~tie).any():
+        bad.append(f"{int((off & ~tie).sum())} voxels beyond {limit:.3g} "
+                   "off a .5 tie")
+    if off.sum() > RESAMPLE_MAX_TIES * off.size:
+        bad.append(f"{int(off.sum())} of {off.size} voxels beyond {limit:.3g}")
+    return bad
+
+
+def _rotation():
+    """The resample test's rotation about z, with a translation."""
+    rot = np.eye(4, dtype=np.float32)
+    a = 0.3
+    rot[:2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+    rot[:3, 3] = [0.5, -0.3, 0.1]
+    return rot
+
+
+def rotated_case():
+    """The reference's grid map of the resample test's rotated case: the
+    transform's rows [3, 4] and the homogeneous world grid [4, P] that
+    ``cnrma_tpu/geometry/tsdf.py`` multiplies."""
+    from cnrma_tpu.geometry.tsdf import coordinates_grid
+    world = coordinates_grid([32, 28, 20]).astype(np.float32) \
+        * np.float32(0.04)
+    world = np.concatenate([world, np.ones_like(world[:1])])
+    return np.ascontiguousarray(_rotation()[:3]), world
+
+
 def test_tsdf_mesh_resample_and_ply(tmp_path, monkeypatch):
-    """``TSDF.transform`` equals the JAX numpy path (its C++ resample off)
-    under a translation and a rotation; ``get_mesh`` equals the numpy mesh;
-    the PLY bytes and the npz keys equal the JAX package's."""
+    """``TSDF.transform`` against the JAX numpy path (its C++ resample off)
+    under a translation and a rotation at ``resample_failures``' rule, and
+    the rule broken by sample positions shifted 0.01 voxel; ``get_mesh``
+    equals the numpy mesh; the PLY bytes and the npz keys equal the JAX
+    package's."""
     from cnrma_tpu.geometry import tsdf as j_tsdf
     from cnrma_tpu.utils import native
     from cnrma_tpu.utils.ply import write_ply_mesh as j_ply
@@ -298,17 +375,23 @@ def test_tsdf_mesh_resample_and_ply(tmp_path, monkeypatch):
                   + rng.normal(0, 0.05, (40, 36, 24)), -1, 1).astype(
                       np.float32)
     org = np.array([[0.3, -0.2, 0.1]], np.float32)
-    rot = np.eye(4, dtype=np.float32)
-    a = 0.3
-    rot[:2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
-    rot[:3, 3] = [0.5, -0.3, 0.1]
+    rot = _rotation()
     shift = np.eye(4, dtype=np.float32)
     shift[:3, 3] = [-0.48, 0.12, -0.2]
     for T in (shift, rot):
         want = j_tsdf.TSDF(0.04, org, vol).transform(T, [32, 28, 20],
-                                                     (0, 0, 0))
-        got = TSDF(0.04, org, vol).transform(T, [32, 28, 20], (0, 0, 0))
-        np.testing.assert_array_equal(got.tsdf_vol, want.tsdf_vol)
+                                                     (0, 0, 0)).tsdf_vol
+        for planted in (0.0, 0.01):
+            with pytest.MonkeyPatch.context() as mp:
+                seen = record_samples(mp, planted)
+                got = TSDF(0.04, org, vol).transform(T, [32, 28, 20],
+                                                     (0, 0, 0)).tsdf_vol
+            assert len(seen) == 1 and got.dtype == want.dtype
+            bad = resample_failures(got, want, *seen[0])
+            if planted:
+                assert bad, "a 0.01-voxel shift passes the rule"
+            else:
+                assert not bad, bad
     jm = j_tsdf.TSDF(0.04, org, vol).get_mesh()
     tm = TSDF(0.04, org, vol).get_mesh()
     np.testing.assert_array_equal(tm[1], jm[1])

@@ -4,15 +4,17 @@ and ``FCAF3DOnly``, Adam, the reference-checkpoint converter, the merge of
 the stages' checkpoints and the mesh metrics.
 
 Tolerances: exact for the readers' arrays and the converter's tensors (the
-same numpy operations on both sides); 1e-6 for one Adam step (the same fp32
-operations); 1e-6 relative for the mesh metrics (sums of fp64 distances in
-another order); ``test_torch_train.STEP_LIMITS`` for the stage-1 training
-step (chaotic in fp32 at random weights, ROADMAP F6); 1e-4 of the TSDF
-scale for the Atlas test forward; 1e-4 relative for the stage-2 losses and
-1e-4 of their scale for its boxes and scores.  The JAX side's training
-step compiles at XLA's default level, as ``test_torch_train``'s does (its
-limits are set for that rounding); its other graphs at the lowest level,
-which halves their compile time (``_run_jax``).
+same numpy operations on both sides), but the readers' GT TSDFs, held at
+``test_torch_postprocess.resample_failures``' rule (ROADMAP F22); 1e-6 for
+one Adam step (the same fp32 operations); 1e-6 relative for the mesh
+metrics (sums of fp64 distances in another order);
+``test_torch_train.STEP_LIMITS`` for the stage-1 training step (chaotic in
+fp32 at random weights, ROADMAP F6); 1e-4 of the TSDF scale for the Atlas
+test forward; 1e-4 relative for the stage-2 losses and 1e-4 of their scale
+for its boxes and scores.  The JAX side's training step compiles at XLA's
+default level, as ``test_torch_train``'s does (its limits are set for that
+rounding); its other graphs at the lowest level, which halves their
+compile time (``_run_jax``).
 """
 
 import os
@@ -123,15 +125,19 @@ def test_recon_reader_matches_jax(scenes, split, monkeypatch):
     """``configs/atlas_recon_scannet.py``'s reader (``recon_random`` with
     the config's ``recon_pipeline`` in training, ``recon_test`` in test)
     through each package's builder: the same frames, crop, projections,
-    offset and GT TSDFs for the same seed, exactly.  The JAX reader
-    resamples the TSDFs with its numpy path, the one the port copies: its
-    optional native library rounds otherwise, and under a rotation that
-    picks other nearest voxels."""
+    offset and image ids for the same seed, exactly; the GT TSDFs at
+    ``test_torch_postprocess.resample_failures``' rule (the reference's
+    grid map rounds as the host's OpenBLAS kernel does), which a 0.01-voxel
+    shift of the sample positions breaks.  The JAX reader resamples the
+    TSDFs with its numpy path, the one the port copies: its optional
+    native library rounds otherwise, and under a rotation that picks other
+    nearest voxels."""
     from cnrma_torch.core.builder import build_dataset as t_dataset
     from cnrma_torch.core.config import Config as TConfig
     from cnrma_tpu.core.builder import build_dataset as j_dataset
     from cnrma_tpu.core.config import Config as JConfig
     from cnrma_tpu.utils import native
+    from test_torch_postprocess import record_samples, resample_failures
     monkeypatch.setattr(native, "available", lambda: False)
     root, ann, val = scenes
     opts = {f"data.{split}.data_root": root,
@@ -148,16 +154,33 @@ def test_recon_reader_matches_jax(scenes, split, monkeypatch):
                                                            seed=3)
     assert tr.space_mode == ("recon_random" if split == "train"
                              else "recon_test")
+
+    def port_sample(i, draws, want, planted=0.0):
+        """Sample ``i`` of the port's reader at ``draws`` and the resample
+        rule's failures of each GT TSDF against the reference's ``want``."""
+        with pytest.MonkeyPatch.context() as mp:
+            seen = record_samples(mp, planted)
+            got = tr.load(i, draws)
+        by_size = {s.shape[1]: (s, v) for s, v in seen}
+        assert len(by_size) == len(seen)
+        return got, {k: resample_failures(got[k], w, *by_size[w.size])
+                     for k, w in want.items() if k.startswith("tsdf_gt_")}
     for i in range(2):
-        want, got = jr[i], tr[i]
-        assert set(got) == set(want)
+        want, draws = jr[i], tr.draw(i)
+        got, bad = port_sample(i, draws, want)
+        assert set(got) == set(want) and len(bad) == 3
         assert list(got["image_ids"]) == list(want["image_ids"])
         for k, w in want.items():
             if k in ("scene", "image_ids"):
                 continue
             assert got[k].dtype == w.dtype, k
-            np.testing.assert_array_equal(got[k], w, err_msg=k)
+            if k in bad:
+                assert not bad[k], (k, bad[k])
+            else:
+                np.testing.assert_array_equal(got[k], w, err_msg=k)
         assert (want["tsdf_gt_004"] < 1).any()          # the crop sees the room
+    _, bad = port_sample(1, draws, want, planted=0.01)
+    assert any(bad.values()), "a 0.01-voxel shift passes the rule"
 
 
 # --- stage 2: the point reader ---------------------------------------------------
@@ -429,9 +452,11 @@ def _fresh_atlas(state):
 def test_atlas_train_step_matches_jax(atlas_step):
     """Stage 1's training step: the three TSDF losses and every gradient
     against JAX's ``Atlas`` at ``test_torch_train``'s ``STEP_LIMITS`` (the
-    R-50 trunk as a group and by leaf cosine, every other leaf within 1e-3
-    of its largest; the trunk's train-mode norms are chaotic in fp32 at
-    random weights, ROADMAP F6), the new running statistics within 1e-5.
+    R-50 trunk as a group and by leaf cosine, the leaves of
+    ``LEAF_SPREAD`` within twice the spread of JAX's own step between
+    XLA's AVX-512 and AVX2 code, every other leaf within 1e-3 of its
+    largest; the trunk's train-mode norms are chaotic in fp32 at random
+    weights, ROADMAP F6), the new running statistics within 1e-5.
     The whole gradient of the tower comes through the volume (K1b's
     function), so the step holds the volume's backward too."""
     want, state, tb, *_ = atlas_step

@@ -508,11 +508,29 @@ def _cosine(a, b):
 
 
 # The step's limits: losses (relative), every gradient leaf but the R-50
-# trunk's (of the leaf's largest magnitude), the trunk as a group (cosine,
-# relative L2 error), each trunk leaf (cosine), the running statistics
-# (absolute).
-STEP_LIMITS = {"losses": 1e-4, "leaf": 1e-3, "trunk_cos": 0.999,
-               "trunk_err": 0.02, "trunk_leaf_cos": 0.99, "stats": 1e-5}
+# trunk's and ``LEAF_SPREAD``'s (of the leaf's largest magnitude), each
+# leaf of ``LEAF_SPREAD`` (in units of its spread), the trunk as a group
+# (cosine, relative L2 error), each trunk leaf (cosine), the running
+# statistics (absolute).
+STEP_LIMITS = {"losses": 1e-4, "leaf": 1e-3, "spread_leaf": 2.0,
+               "trunk_cos": 0.999, "trunk_err": 0.02,
+               "trunk_leaf_cos": 0.99, "stats": 1e-5}
+# The leaves whose gradient JAX's own step does not reproduce within
+# ``STEP_LIMITS["leaf"]`` across hosts: XLA:CPU's AVX-512 code and its
+# AVX2 code (``XLA_FLAGS=--xla_cpu_max_isa=AVX2``, in a child process on
+# an AMD EPYC with AVX-512) put JAX's gradient of each this far apart, of
+# its largest magnitude (the smaller of the tiny CNRMA's and the tiny
+# Atlas's steps).  The 2D tower's other leaves move by 9.3e-4 at most,
+# the U-Net's others, the TSDF head's and the detector's by 6.4e-5.  Each
+# leaf here is held at twice its spread.
+LEAF_SPREAD = {"backbone3d.down0_block0.conv1.norm.bias": 3.687e-3,
+               "backbone3d.down0_block0.conv1.norm.weight": 1.993e-3,
+               "tower2d.fuse.p4_head0.conv.weight": 1.270e-3,
+               "backbone3d.down0_block0.conv1.conv.weight": 1.247e-3,
+               "tower2d.fpn.lateral4.norm.weight": 1.079e-3,
+               "tower2d.fpn.output4.norm.bias": 1.067e-3,
+               "tower2d.fuse.p2_head0.conv.weight": 1.055e-3,
+               "tower2d.fpn.output4.norm.weight": 1.028e-3}
 
 
 def _step_readings(port, tb, kw, want, fault=None):
@@ -533,12 +551,17 @@ def _step_readings(port, tb, kw, want, fault=None):
         grads[key] = arr
     assert set(grads) == set(got)
     trunk = [k for k in got if k.startswith("tower2d.resnet.")]
+
+    def err(k):
+        return float(np.abs(got[k] - grads[k]).max()
+                     / max(float(np.abs(grads[k]).max()), 1e-30))
     r = {"losses": max((abs(float(losses[k].detach()) - float(w))
                         / abs(float(w)), k)
                        for k, w in want["losses"].items() if float(w)),
-         "leaf": max((float(np.abs(got[k] - grads[k]).max()
-                            / max(float(np.abs(grads[k]).max()), 1e-30)), k)
-                     for k in got if k not in trunk),
+         "leaf": max((err(k), k) for k in got
+                     if k not in trunk and k not in LEAF_SPREAD),
+         "spread_leaf": max((err(k) / spread, k)
+                            for k, spread in LEAF_SPREAD.items()),
          "trunk_leaf_cos": min((_cosine(got[k], grads[k]), k)
                                for k in trunk)}
     a = np.concatenate([got[k].ravel() for k in trunk]).astype(np.float64)
@@ -566,7 +589,9 @@ def test_train_step_matches_jax(tiny_step, monkeypatch):
     parameters (``synthesize_parameters``, seed 1), batch, draws and kept
     points, at ``STEP_LIMITS``: the losses within 1e-4 relative, the new
     running statistics within 1e-5, and every gradient leaf within 1e-3 of
-    the leaf's largest magnitude, but those of the R-50 trunk.
+    the leaf's largest magnitude, but those of the R-50 trunk and the
+    eight of ``LEAF_SPREAD``, which JAX's own step moves by more than that
+    between XLA's AVX-512 and AVX2 code: each within twice that spread.
 
     The trunk's backward in training is chaotic in fp32 at random weights,
     in JAX as in the port: its batch norms see 8 to 32 samples at res4

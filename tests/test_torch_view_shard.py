@@ -26,7 +26,9 @@ once, under one time limit, while JAX's references are computed here).
     one-process step on the same parameters and draws, at
     ``STEP_LIMITS``: the untrained tower is chaotic in fp32 (ROADMAP F6),
     so the 2D tower's gradients are held as groups (relative L2 error) and
-    every leaf by its cosine, as ``test_torch_train.py`` does;
+    every leaf by its cosine, as ``test_torch_train.py`` does; the same
+    step with depth marching and with ARKit's 7-DoF head
+    (``STEP_VARIANTS``);
 (e') the tiny ``Atlas`` step (stage 1) with ``--view-shards 2``'s split on
     two ranks against the one-process ``Atlas`` step (itself held against
     JAX in ``test_torch_stages.py``) at ``ATLAS_LIMITS``, the limits of
@@ -38,9 +40,10 @@ once, under one time limit, while JAX's references are computed here).
     sharding) within ``CLI_LOSS_RTOL`` of the one-process CLI; both CLIs
     refuse what JAX's refuse.
 
-Planted faults break (a), (c), (e) and (e'): batch norms that do not sync their
-statistics, and a boundary whose backward sums the n copies of the
-replicated cotangent (the collective's plain transpose).
+Planted faults break (a), (c), (e), its two variants (one fault each)
+and (e'): batch norms that do not sync their statistics, and a boundary
+whose backward sums the n copies of the replicated cotangent (the
+collective's plain transpose).
 """
 
 import json
@@ -524,23 +527,40 @@ def _small_rank(out):
     dist.shutdown(group)
 
 
-def tiny_cnrma():
-    """``test_torch_bridge.tiny_torch_cnrma`` at 1 cm detector voxels,
-    made here: that module imports JAX, which the ranks do not need."""
+def tiny_cnrma(**kw):
+    """``test_torch_bridge.tiny_torch_cnrma`` at 1 cm detector voxels
+    (``kw`` overriding its arguments), made here: that module imports JAX,
+    which the ranks do not need."""
     from cnrma_torch.models.cn_rma import CNRMA
     from cnrma_torch.models.fcaf3d import DetectionCapacities
-    return CNRMA(voxel_dim=(16, 16, 16), voxel_size=0.1, n_classes=3,
-                 ray_samples=24, rays_per_view_cap=512, max_points=1024,
-                 pts_threshold=500, assigner_limit=2, assigner_topk=4,
-                 nms_pre=16, voxel_size_fcaf3d=0.01,
-                 capacities=DetectionCapacities.tiny())
+    return CNRMA(**{**dict(
+        voxel_dim=(16, 16, 16), voxel_size=0.1, n_classes=3,
+        ray_samples=24, rays_per_view_cap=512, max_points=1024,
+        pts_threshold=500, assigner_limit=2, assigner_topk=4, nms_pre=16,
+        voxel_size_fcaf3d=0.01, capacities=DetectionCapacities.tiny()),
+        **kw})
 
 
-def _step_case():
+# The tiny CNRMA's other marches and heads under view shards: the model's
+# arguments, the GT boxes' centre and the planted fault each must fail.
+# Depth marching (the march's dispatch in ``forward_view_sharded``) keeps
+# points within 0.15 of z = 0, the first surface its rays cross, so its
+# boxes sit at z = 0.2, where the batch assigns positives; ARKit's 7-DoF
+# head (``configs/ray_marching_arkit.py``: 17 classes, 8 regression
+# outputs, the yaw in the IoU loss) takes GT boxes turned by 0.3 rad.
+STEP_VARIANTS = {"depth": (dict(ray_marching_type="depth"), (0.8, 0.8, 0.2),
+                           "no_bn_sync"),
+                 "arkit": (dict(n_classes=17, n_reg_outs=8, with_yaw=True),
+                           (0.8, 0.8, 0.8), "sum_copies")}
+
+
+def _step_case(centre=(0.8, 0.8, 0.8), **kw):
     """The tiny CNRMA of ``test_torch_train.py`` (64x64 views, 1 cm
-    detector voxels, ``synthesize_parameters`` seed 1) and its batch."""
+    detector voxels, ``synthesize_parameters`` seed 1; ``kw`` as
+    ``tiny_cnrma``'s) and its batch: two GT boxes at ``centre``, turned by
+    0.3 rad for a yaw head."""
     from cnrma_torch.synthetic import synthesize_parameters
-    model = tiny_cnrma()
+    model = tiny_cnrma(**kw)
     synthesize_parameters(model, 1)
     rng = np.random.RandomState(0)
     intr = np.array([[60.0, 0, 32], [0, 60.0, 32], [0, 0, 1]], np.float32)
@@ -553,7 +573,8 @@ def _step_case():
                  np.broadcast_to(proj, (1, 2, 3, 4)))),
              "view_valid": torch.ones(1, 2, dtype=torch.bool),
              "offset": torch.zeros(1, 3),
-             "gt_boxes": torch.tensor([[[0.8, 0.8, 0.8, 0.6, 0.6, 0.6, 0.]]
+             "gt_boxes": torch.tensor([[[*centre, 0.6, 0.6, 0.6,
+                                         0.3 if model.with_yaw else 0.]]
                                        * 2]),
              "gt_labels": torch.ones(1, 2, dtype=torch.int32),
              "gt_valid": torch.ones(1, 2, dtype=torch.bool),
@@ -655,6 +676,19 @@ def _step_rank(out):
             report["atlas_digest"] = _digest(got)
         if want is not None:
             report["atlas"][str(fault)] = _atlas_readings(got, want)
+    for kind, (kw, centre, planted) in STEP_VARIANTS.items():
+        model, batch = _step_case(centre, **kw)
+        case = (model, batch, {k: v.clone() for k, v in
+                               model.state_dict().items()})
+        want = _step(case, None) if rank == 0 else None
+        report[kind] = {}
+        for fault in (None, planted):
+            got = _step(case, group, fault)
+            if fault is None:
+                report[kind + "_digest"] = _digest(got)
+            if want is not None:
+                report[kind][str(fault)] = _step_readings(got, want)
+                report[kind + "_losses"] = want["losses"]
     with open(os.path.join(out, f"step_{rank}.json"), "w") as f:
         json.dump(report, f)
     dist.shutdown(group)
@@ -977,6 +1011,37 @@ def test_planted_boundary_fault_breaks_the_atlas_limits(runs):
     r = _step_report(out, 0)["atlas"]["sum_copies"]
     print(f"sum_copies, Atlas: breaks {_atlas_failures(r)}; readings {r}")
     assert {"unet_head", "tower"} <= set(_atlas_failures(r)), r
+
+
+@pytest.mark.parametrize("kind", list(STEP_VARIANTS))
+def test_view_sharded_variant_step_matches_one_process(runs, kind):
+    """The tiny CNRMA's view-sharded step with depth marching, and with
+    ARKit's 7-DoF head (``STEP_VARIANTS``), on two ranks against the
+    one-process step at ``STEP_LIMITS``; the batch assigns positives;
+    both ranks end with the same gradients and statistics."""
+    out, codes, _ = runs
+    assert codes["step"] == [0, 0]
+    ranks = [_step_report(out, r) for r in range(2)]
+    assert not ranks[1][kind]
+    losses = ranks[0][kind + "_losses"]
+    assert losses["loss_cls"] > 0 and losses["loss_bbox"] > 0
+    r = ranks[0][kind]["None"]
+    print(f"view-sharded {kind} step readings:", r)
+    assert not _step_failures(r), r
+    assert ranks[0][kind + "_digest"] == ranks[1][kind + "_digest"]
+
+
+@pytest.mark.parametrize("kind", list(STEP_VARIANTS))
+def test_planted_fault_breaks_the_variant_step_limits(runs, kind):
+    """Unsynced batch norms break the depth-marching step's limits, the
+    boundary that sums the copies of the replicated cotangent the ARKit
+    step's."""
+    out, codes, _ = runs
+    assert codes["step"] == [0, 0]
+    fault = STEP_VARIANTS[kind][2]
+    r = _step_report(out, 0)[kind][fault]
+    print(f"{fault}, {kind}: breaks {_step_failures(r)}; readings {r}")
+    assert _step_failures(r), r
 
 
 def _load_all(path):
