@@ -14,8 +14,9 @@ synthetic scenes.
         TRAIN_CLI_ARGS ...]   (the ddp phase's child: the train CLI runs
         in turn, then each one's launches, model hash and step records to
         a file)
-    python3 chip_smoke.py --learn-child OUT OVERFIT_CHECK_ARGS   (the
-        learn phase's child: the detector-only check's result to OUT)
+    python3 chip_smoke.py --learn-child OUT TOOL TOOL_ARGS   (a child of
+        the learn phase: ``run(TOOL_ARGS)`` of cnrma_torch.tools.TOOL, its
+        result and launches to OUT)
 
 Phases (each prints a few lines; any failure raises and exits non-zero):
   1. device: CUDA required; card name and power limit from nvidia-smi.
@@ -148,7 +149,8 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
      and stage times); on several cards also stage 3 on a rank a card
      and the view-sharded paths across cards (``phase_view_cards``: stage
      3 at 40 views, with NeuS and depth marching and on ARKit's config,
-     and stage 1 at 50 on two cards against one card).
+     stage 1 at 50, and the val evaluation at the test grid, on two
+     cards against one card).
   batch. training batches of two scenes, on phase 6f's scenes and dumps:
      the tiny fp32 step of phase 6d at two scenes on the GPU against the
      CPU at ``TRAIN_LIMITS`` (the 3D U-Net held as a group, like the
@@ -209,15 +211,15 @@ Phases (each prints a few lines; any failure raises and exits non-zero):
      ``--yaw``: the tiny CNRMA trained on two synthetic rooms as one batch
      for 70 steps; the first and last total and reconstruction losses,
      mAP@0.25 and @0.50, seconds a step, peak memory, the launches; and
-     meanwhile (from the start of ``prep`` on), in a child process
-     (``chip_smoke.py --learn-child``),
      ``python -m cnrma_torch.tools.overfit_check --steps CHECK_STEPS``
      (the tiny ``FCAF3DOnly`` on two box scenes) with
      ``CNRMA_CAPACITY_DEBUG=1``: its loss curve, mAP, seconds a step,
      peak memory and capacity fills; each fails unless its tool's PASS
-     rule holds.  All three are host-bound, so the seconds of ``prep``
-     and ``learn`` and of their steps are printed as taken beside the
-     child, on a shared host.
+     rule holds.  All three are host-bound and run in child processes
+     (``chip_smoke.py --learn-child``), the detector-only one from the
+     start of ``arkit`` on, the whole model's from the start of ``prep``
+     on, so the seconds of ``arkit``, ``prep`` and ``learn`` and of the
+     checks' steps are printed as taken beside them, on a shared host.
   7. probes: first the dot kernel on random integers in [-4, 4] at the
      probe's 128x256x128 (exact in fp32, tolerance 0; the probe's own
      all-ones input cannot see a permuted row or column); then the three
@@ -2637,10 +2639,11 @@ def _check_world_one(tag: str, recs, child: dict, want: dict,
         raise AssertionError(f"[ddp {tag}] a log var is not finite")
 
 
-def _world_n(root: str, tag: str, argv, n: int, want: dict) -> list:
-    """The train CLI for 2 steps as ``torchrun --nproc_per_node n`` on
-    NCCL, one card a rank: every rank ends with the same parameters and
-    statistics (a hash of each), each launches ``want``; rank 0's step
+def _world_n(root: str, tag: str, argv, n: int, want: dict,
+             steps: int = 2) -> list:
+    """The train CLI for ``steps`` steps as ``torchrun --nproc_per_node
+    n`` on NCCL, one card a rank: every rank ends with the same parameters
+    and statistics (a hash of each), each launches ``want``; rank 0's step
     and all-reduce times.  Returns rank 0's records."""
     wd = os.path.join(root, f"{tag}_world{n}")
     gc.collect()
@@ -2673,10 +2676,10 @@ def _world_n(root: str, tag: str, argv, n: int, want: dict) -> list:
             + ", ".join(f"{k} {v:.1f}" for k, v in r["stages_ms"].items())
             + f" ({card()})")
     if len(digests) != n or len(set(digests)) != 1 \
-            or len(recs) != 2 or any(c != want for c in launches) \
+            or len(recs) != steps or any(c != want for c in launches) \
             or len(launches) != n:
-        raise AssertionError(f"[ddp {tag}] {n} ranks must take 2 steps, "
-                             f"launch {want} each and end equal")
+        raise AssertionError(f"[ddp {tag}] {n} ranks must take {steps} "
+                             f"steps, launch {want} each and end equal")
     return recs
 
 
@@ -3192,7 +3195,9 @@ def _view_cards(root: str, data: str, ann: str, cards: int,
     rows x 2 view ranks, 40 views a scene, which one card cannot hold);
     stage 1 alike (``_view_stage1``); the test CLI's ``--view-shard`` over
     the cards against the one-card CLI on the same two scenes at the test
-    width (forward seconds a scene, TSDFs within ``VIEW_CLI_TOL``)."""
+    width (forward seconds a scene, TSDFs within ``VIEW_CLI_TOL``); the
+    train CLI's val evaluation under ``--view-shards 2`` against one
+    card's (``_view_val``)."""
     s3 = ["--max-steps", "2", "--cfg-options", f"data.train.data_root={data}",
           f"data.train.ann_file={ann}", "evaluation=None",
           "log_config.interval=1"]
@@ -3205,6 +3210,7 @@ def _view_cards(root: str, data: str, ann: str, cards: int,
                                     "--batch-size", "2"] + s3, 4, want)
     _view_stage1(root, s3[3:], counters)
     _view_test_cli(root, data, ann, cards)
+    _view_val(root, s3[3:5], ann, counters)
 
 
 def _view_against_one(root: str, tag: str, config: str, argv, counters,
@@ -3278,6 +3284,11 @@ def _view_stage1(root: str, opts, counters) -> None:
 
 
 VIEW_CLI_TOL = 1e-4         # the --view-shard test CLI's TSDF, absolute
+# the val evaluation's step: the config's AdamW at rate 0, so that both runs
+# score the same parameters (one step of AdamW moves a parameter by about
+# lr times its gradient's sign, which the two runs' ulp-apart gradients
+# can flip; ROADMAP F6) and the val losses read the evaluation alone
+VIEW_VAL_OPTS = ("optimizer.lr=0.0", "log_config.interval=1")
 
 
 def _view_test_cli(root: str, data: str, ann: str, cards: int) -> None:
@@ -3321,6 +3332,48 @@ def _view_test_cli(root: str, data: str, ann: str, cards: int) -> None:
     if len(shared) != len(records) or err > VIEW_CLI_TOL:
         raise AssertionError("[view] the --view-shard test CLI's scenes "
                              "differ from one card's")
+
+
+def _view_val(root: str, train_opts, ann: str, counters) -> None:
+    """The train CLI for one step (``VIEW_VAL_OPTS``) and the config's
+    val evaluation at its stop, at the config's test grid on the two
+    scenes of ``ann``: on one card in this process, then with
+    ``--view-shards 2`` on two NCCL cards (each val scene through the
+    test forward's view sharding, ``tools/train.py:val_evaluator``).
+    The val TSDF losses within ``VIEW_TSDF_TOL`` of one card's,
+    relative; the detector's val losses and mAP are logged, not held
+    (the untrained detector reorders its kept points under ulp-level
+    changes, ROADMAP F6)."""
+    data = os.path.dirname(ann)
+    argv = ["--max-steps", "1", "--cfg-options", *train_opts,
+            f"data.val.data_root={data}", f"data.val.ann_file={ann}",
+            *VIEW_VAL_OPTS]
+    one, _, launches, _ = _run_train_cli(
+        [CLI_CONFIG, "--work-dir", os.path.join(root, "view_val_one")]
+        + argv, counters, 1, "view val one card")
+    if launches != {"volume_accum": 3, "volume_accum_sum": 0,
+                    "volume_accum_bwd": 1, "ray_march": 3}:
+        raise AssertionError(f"[view val] one card: the step and two val "
+                             f"scenes must launch K1 3, K1b 1, K2 3: "
+                             f"{launches}")
+    got = _world_n(root, "view_val", [CLI_CONFIG, "--view-shards", "2"]
+                   + argv, 2, {"volume_accum": 0, "volume_accum_sum": 3,
+                               "volume_accum_bwd": 1, "ray_march": 3},
+                   steps=1)
+    want, val = one[-1].get("val") or {}, got[-1].get("val") or {}
+    tsdf = {k: abs(val[k] - v) / max(abs(v), 1e-30)
+            for k, v in want.items() if k.startswith("val/tsdf_loss")}
+    log(f"[view val] the val evaluation at the test grid, 2 scenes of 50 "
+        f"views: on one card {one[-1].get('eval_s', 0):.2f} s, with "
+        f"--view-shards 2 on two cards {got[-1].get('eval_s', 0):.2f} s; "
+        f"TSDF losses against one card, relative: {tsdf} (tol "
+        f"{VIEW_TSDF_TOL}); not held: the detector's val losses and mAP "
+        f"on one card {dict((k, v) for k, v in want.items() if k not in tsdf)}"
+        f", on two {dict((k, v) for k, v in val.items() if k not in tsdf)} "
+        f"({card()})")
+    if len(tsdf) != 3 or max(tsdf.values()) > VIEW_TSDF_TOL:
+        raise AssertionError("[view val] the val TSDF losses on two cards "
+                             "are not one card's")
 
 
 def phase_view_cards() -> None:
@@ -4534,35 +4587,29 @@ LEARN_ROOMS = 2
 # before 250 and one stayed on the loss plateau to 350 (PERF.md), so a
 # change of that order reads this again (``overfit_check --score-every``)
 CHECK_STEPS = 150
-SHARED = "beside the detector-only check's child: a shared host"
+# the learning checks run in child processes (``chip_smoke.py
+# --learn-child``), all host-bound at these sizes: the detector-only one
+# from the start of ``arkit`` on, the whole model's two from the start of
+# ``prep`` on, each read in ``learn``; so the seconds of those phases and
+# of the checks' steps are shared ones
+SHARED = "beside the learning checks' children: a shared host"
 
 
-def phase_learn(dev, detector) -> None:
-    """The learning checks on the card.  The whole-model one: ``python -m
-    cnrma_torch.tools.overfit_full --steps LEARN_STEPS``, ScanNet-style and
-    ``--yaw``, its two rooms as one batch, the launch counts set to 0
-    before each run and read after (K1, K1b and K2 once a room a training
-    step; K1 and K2 once a scored room); fails unless the tool's PASS rule
-    holds.  The detector-only one runs meanwhile in ``detector``, the
-    child that ``_start_learn_detector`` started before ``prep``, and is
-    read here (``_learn_detector``): all three are host-bound at these
-    sizes, so their seconds are shared ones."""
-    from cnrma_torch.ops.backproject import VOLUME_ACCUM, VOLUME_ACCUM_BWD
-    from cnrma_torch.ops.ray_marching import RAY_MARCH
-    from cnrma_torch.tools import overfit_full
-    counters = {"volume_accum": VOLUME_ACCUM,
-                "volume_accum_bwd": VOLUME_ACCUM_BWD, "ray_march": RAY_MARCH}
-    for flags in ([], ["--yaw"]):
-        tag = "learn" + "".join(f" {f}" for f in flags)
-        torch.cuda.synchronize()
-        for c in counters.values():
-            c.launches = 0
-        t0 = time.perf_counter()
-        out = overfit_full.run(["--steps", str(LEARN_STEPS), *flags])
-        launches = _counts(counters)
+def phase_learn(children) -> None:
+    """The learning checks on the card, read from their ``children``
+    (``_start_learn``).  The whole-model one: ``python -m
+    cnrma_torch.tools.overfit_full --steps LEARN_STEPS``, ScanNet-style
+    (``full``) and ``--yaw`` (``full --yaw``), its two rooms as one batch,
+    each in a child of its own that counts its launches from 0 (K1, K1b
+    and K2 once a room a training step; K1 and K2 once a scored room);
+    fails unless the tool's PASS rule holds.  Then the detector-only one
+    (``check``, ``_learn_detector``)."""
+    for tag in ("full", "full --yaw"):
+        out, wall, _ = _learn_result(f"learn {tag}", children[tag])
+        launches = out["launches"]
         steps = out["steps"]
-        log(f"[{tag}] {steps} steps (two rooms a step) in "
-            f"{time.perf_counter() - t0:.1f} s ({SHARED}): total loss "
+        log(f"[learn {tag}] {steps} steps (two rooms a step) in {wall:.1f} "
+            f"s, a child process ({SHARED}): total loss "
             f"{out['first']:.4f} -> {out['final']:.4f}, recon "
             f"{out['first_recon']:.4f} -> {out['final_recon']:.4f}; "
             f"mAP@0.25 {out['mAP_0.25']:.4f}, mAP@0.50 "
@@ -4570,66 +4617,63 @@ def phase_learn(dev, detector) -> None:
             f"memory {out['peak_gib']:.2f} GiB; launches {launches}; "
             f"PASS {out['ok']}")
         n = LEARN_ROOMS
-        if launches != {"volume_accum": n * steps + n,
+        if launches != {"volume_accum": n * steps + n, "volume_accum_sum": 0,
                         "volume_accum_bwd": n * steps,
                         "ray_march": n * steps + n}:
-            raise AssertionError(f"[{tag}] each step must launch K1, K1b "
-                                 f"and K2 once a room, each scored room "
+            raise AssertionError(f"[learn {tag}] each step must launch K1, "
+                                 f"K1b and K2 once a room, each scored room "
                                  f"K1 and K2: {launches}")
         if not out["ok"]:
-            raise AssertionError(f"[{tag}] the learning check failed its "
-                                 f"rule (total < 0.6 x first, recon < "
+            raise AssertionError(f"[learn {tag}] the learning check failed "
+                                 f"its rule (total < 0.6 x first, recon < "
                                  f"0.5 x first, mAP@0.25 >= 0.5)")
-    _learn_detector(*detector)
+    _learn_detector(children["check"])
 
 
-def _start_learn_detector():
-    """Start ``chip_smoke.py --learn-child``: the detector-only learning
-    check's ``run()`` for ``CHECK_STEPS`` steps with
-    ``CNRMA_CAPACITY_DEBUG=1``.  Returns the process, the file its result
-    goes to and its start time; ``_stop_learn_detector`` ends it."""
+def _start_learn(tool: str, argv, env=None):
+    """Start ``chip_smoke.py --learn-child OUT TOOL ARGV``: ``run(ARGV)``
+    of ``cnrma_torch.tools.TOOL`` in a child process with ``env`` added
+    to its environment.  Returns the process, the file its result goes to
+    and its start time; ``_stop_learn`` ends it."""
     os.makedirs("build", exist_ok=True)
     out = os.path.join(tempfile.mkdtemp(prefix="learn_", dir="build"),
-                       "check.json")
-    env = dict(os.environ, CNRMA_CAPACITY_DEBUG="1")
+                       "result.json")
     with open(out + ".log", "w") as log_file:     # the child keeps its own
         proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--learn-child",
-             out, "--steps", str(CHECK_STEPS)], stdout=log_file,
-            stderr=subprocess.STDOUT, env=env)
+             out, tool, *argv], stdout=log_file, stderr=subprocess.STDOUT,
+            env=dict(os.environ, **(env or {})))
     return proc, out, time.perf_counter()
 
 
-def _stop_learn_detector(detector) -> None:
-    """Kill ``_start_learn_detector``'s child if it still runs, and remove
-    its files."""
-    proc, out, _ = detector
+def _stop_learn(child) -> None:
+    """Kill ``_start_learn``'s child if it still runs, and remove its
+    files."""
+    proc, out, _ = child
     if proc.poll() is None:
         proc.kill()
         proc.wait()
     shutil.rmtree(os.path.dirname(out), ignore_errors=True)
 
 
-def _learn_child(out: str, argv) -> int:
-    """``chip_smoke.py --learn-child OUT ARGV``: ``overfit_check.run(ARGV)``
-    in this process, then its result and the launches of K1, K1b and K2
-    it made to the file ``OUT``."""
-    from cnrma_torch.tools import overfit_check
+def _learn_child(out: str, tool: str, argv) -> int:
+    """``chip_smoke.py --learn-child OUT TOOL ARGV``: ``run(ARGV)`` of
+    ``cnrma_torch.tools.TOOL`` in this process, then its result and the
+    launches of K1, K1's sum mode, K1b and K2 it made to the file
+    ``OUT``."""
+    import importlib
     counters = _kernel_counters()
-    result = overfit_check.run(argv)
+    result = importlib.import_module(f"cnrma_torch.tools.{tool}").run(argv)
     result["launches"] = _counts(counters)
     with open(out, "w") as f:
         json.dump(result, f)
     return 0
 
 
-def _learn_detector(proc, out: str, t0: float) -> None:
-    """The detector-only learning check's child (``_start_learn_detector``)
-    read back: its loss curve, mAP, seconds a step (beside the other work
-    of its time, and with the capacity reads), peak memory and each capacity
-    site's largest fill; no volume or march kernel; fails unless the JAX
-    tool's PASS rule holds (final loss < 0.5 x the first, mAP@0.25 >=
-    0.5)."""
+def _learn_result(tag: str, child):
+    """A ``_start_learn`` child's result, its wall seconds from its start
+    and its output, once it has ended (killed after 900 s)."""
+    proc, out, t0 = child
     try:
         proc.wait(timeout=900)
     except subprocess.TimeoutExpired:
@@ -4639,14 +4683,23 @@ def _learn_detector(proc, out: str, t0: float) -> None:
     with open(out + ".log") as f:
         text = f.read()
     if proc.returncode != 0 or not os.path.isfile(out):
-        raise AssertionError(f"[learn check] the child failed "
+        raise AssertionError(f"[{tag}] the child failed "
                              f"({proc.returncode}):\n{text[-4000:]}")
     with open(out) as f:
-        res = json.load(f)
+        return json.load(f), wall, text
+
+
+def _learn_detector(child) -> None:
+    """The detector-only learning check's child read back: its loss curve,
+    mAP, seconds a step (beside the other work of its time, and with the
+    capacity reads), peak memory and each capacity site's largest fill; no
+    volume or march kernel; fails unless the JAX tool's PASS rule holds
+    (final loss < 0.5 x the first, mAP@0.25 >= 0.5)."""
+    res, wall, text = _learn_result("learn check", child)
     launches = res["launches"]
     log(f"[learn check] overfit_check --steps {res['steps']} (two scenes a "
-        f"step; a child process beside the prep and learn phases, on a "
-        f"shared host) in {wall:.1f} s: loss every 10 "
+        f"step; a child process beside the arkit, prep and learn phases, on "
+        f"a shared host) in {wall:.1f} s: loss every 10 "
         f"steps " + " ".join(f"{v:.3f}" for v in res["losses"][::10])
         + f"; {res['first']:.4f} -> {res['final']:.4f}; mAP@0.25 "
         f"{res['mAP_0.25']:.4f}, mAP@0.50 {res['mAP_0.50']:.4f}; "
@@ -4821,16 +4874,21 @@ def main() -> None:
     _timed("train reference", phase_train_reference, dev)
     train_launches = _timed("train cli", phase_train_cli, dev)
     stage1_calls = _timed("stages, ddp, batch", phase_three_stages, dev)
-    arkit_calls = _timed("arkit", phase_arkit, dev)
-    # the detector-only learning check, host-bound, runs in a child beside
-    # the data preparation and the whole-model learning checks
-    detector = _start_learn_detector()
-    log(f"[learn check] started; the prep and learn phases run {SHARED}")
+    # the learning checks, host-bound, run in children (``SHARED``)
+    children = {"check": _start_learn("overfit_check", [
+        "--steps", str(CHECK_STEPS)], {"CNRMA_CAPACITY_DEBUG": "1"})}
+    log(f"[learn check] started; the arkit, prep and learn phases run "
+        f"{SHARED}")
     try:
+        arkit_calls = _timed(f"arkit ({SHARED})", phase_arkit, dev)
+        for flags in ([], ["--yaw"]):
+            children[" ".join(["full", *flags])] = _start_learn(
+                "overfit_full", ["--steps", str(LEARN_STEPS), *flags])
         _timed(f"prep ({SHARED})", phase_prep, dev)
-        _timed(f"learn ({SHARED})", phase_learn, dev, detector)
+        _timed(f"learn ({SHARED})", phase_learn, children)
     finally:
-        _stop_learn_detector(detector)
+        for child in children.values():
+            _stop_learn(child)
     probes, probe_calls = _timed("probes", phase_probes, dev)
     kernels = [
         dict(name="volume_accum", route="cuda",
@@ -4866,5 +4924,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-child"]:
         sys.exit(_train_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--learn-child"]:
-        sys.exit(_learn_child(sys.argv[2], sys.argv[3:]))
+        sys.exit(_learn_child(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit(main())

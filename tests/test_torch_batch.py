@@ -32,15 +32,12 @@ import math
 import os
 import pickle
 import shutil
-import socket
-import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as mp
 
 from cnrma_torch.core.builder import build_dataset, build_model
 from cnrma_torch.core.config import Config
@@ -50,6 +47,7 @@ from cnrma_torch.models import layers as tl
 from cnrma_torch.synthetic import (
     synthesize_parameters, write_point_dumps, write_scannet)
 from cnrma_torch.train import loop as tloop
+from _torch_spawn import spawn
 from _torch_threads import _few_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -681,20 +679,12 @@ def _options(root):
             "evaluation={'interval':1,'metric':'mAP'}"]
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _rank_cli(rank, port, root, out):
-    """Rank ``rank`` of two gloo ranks: the train CLI on stage 2 at
+def _rank_cli(root, out):
+    """A rank of two gloo ranks: the train CLI on stage 2 at
     ``--batch-size 4`` for one step, writing the dataset indices of the
     batches its loader gave and a hash of its trained model."""
-    torch.set_num_threads(2)
-    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
-                      RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank))
     from cnrma_torch.tools import train as train_cli
+    rank = int(os.environ["RANK"])
     seen, models = [], []
     real_iter, real_run = SceneLoader.__iter__, train_cli.run_training
 
@@ -725,25 +715,11 @@ def two_ranks(split, tmp_path_factory):
     """Two gloo ranks of the train CLI at ``--batch-size 4``, spawned at
     once, under one time limit: their reports."""
     out = str(tmp_path_factory.mktemp("ranks"))
-    port = _free_port()
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_rank_cli, args=(r, port, split, out))
-             for r in range(2)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + TIME_LIMIT
-    try:
-        for p in procs:
-            p.join(max(0.0, deadline - time.monotonic()))
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-    reports = []
+    jobs = spawn({"ranks": (_rank_cli, 2, (split, out))}, TIME_LIMIT)
     for r in range(2):           # the checkpoints (850 MB each) go now
         shutil.rmtree(os.path.join(out, f"wd{r}"), ignore_errors=True)
-    assert [p.exitcode for p in procs] == [0, 0]
+    jobs.check("ranks")
+    reports = []
     for r in range(2):
         with open(os.path.join(out, f"rank{r}.json")) as f:
             reports.append(json.load(f))

@@ -1,7 +1,7 @@
 """The whole slice: the tiny ``CNRMA`` test-mode forward of the JAX package
 (``tests/test_pipeline.py:tiny_model``) against the PyTorch port with the
-same parameters (bridged from the flax init) and the same subsample draw,
-fp32 on the CPU.
+same parameters (the port's default initialisation, as flax variables) and
+the same subsample draw, fp32 on the CPU.
 
 ``ray_samples`` 24 takes the dense march; 64 turns on empty-space skipping,
 whose coarse pass runs the JAX Pallas lookup kernel K2 in interpret mode.
@@ -23,11 +23,13 @@ from _torch_threads import _few_threads  # noqa: F401
 
 @pytest.fixture(scope="module")
 def tiny_init():
-    model, batch = tiny_model()
-    rng = jax.random.PRNGKey(0)
-    variables = jax.jit(lambda: model.init(
-        {"params": rng, "sample": rng}, batch, train=False))()
-    return batch, jax.device_get(variables)
+    """The tiny model's batch, and the port's default initialisation
+    (``torch.manual_seed(0)``) as its flax variables: JAX's ``init`` of
+    the whole model would be one more compile of its forward."""
+    from test_torch_stages import _flax_tree
+    _, batch = tiny_model()
+    torch.manual_seed(0)
+    return batch, _flax_tree(tiny_torch_cnrma().state_dict())
 
 
 def _jax_forward(batch, variables, ray_samples):

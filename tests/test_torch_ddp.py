@@ -23,14 +23,11 @@ once, under one time limit):
 import json
 import os
 import pickle
-import socket
-import time
 import types
 
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as mp
 
 from cnrma_torch.core.builder import build_dataset, build_model
 from cnrma_torch.core.config import Config
@@ -41,6 +38,7 @@ from cnrma_torch.synthetic import write_point_dumps, write_scannet
 from cnrma_torch.train import loop as tloop
 from cnrma_torch.train.optim import (
     FROZEN_PREFIXES_FREEZE_AT_2, build_lr_schedule, build_optimizer)
+from _torch_spawn import spawn
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = {"stage2": os.path.join(REPO, "configs", "fcaf3d_middle_scannet.py"),
@@ -49,67 +47,13 @@ CAPS = ("{'voxelize':256,'stride2':128,'stride4':64,"
         "'levels':(32,16,8,8),'neck':(64,32,16)}")
 N_SCENES = 5                # train scenes: 2 steps an epoch on 2 ranks
 N_VAL = 3
-TIME_LIMIT = 300            # seconds the spawned jobs may take
+TIME_LIMIT = 450            # seconds the spawned jobs may take
 LOSS_RTOL = 1e-6
 # The one-process step against the ranks': the same arithmetic on the
 # same inputs in another process, two threads each; stated as 1e-6 of
 # each tensor's largest magnitude (the CPU runs have shown 0).
 STEP_TOL = 1e-6
 EVAL_RTOL = 1e-6
-
-
-# --- spawning ranks ----------------------------------------------------------
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _entry(index, jobs):
-    """Process ``index`` of a spawn: its job is ``(name, world, rank,
-    port, args)``; a job with a world runs as that rank of a gloo group
-    on ``localhost:port`` (``torchrun``'s environment)."""
-    name, world, rank, port, args = jobs[index]
-    torch.set_num_threads(2)
-    if world:
-        os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
-                          RANK=str(rank), WORLD_SIZE=str(world),
-                          LOCAL_RANK=str(rank))
-    globals()[name](*args)
-
-
-def _spawn(groups, meanwhile):
-    """Start ``groups`` (``{tag: (function, world, args)}``, ``world``
-    ranks each; 0: one process without a group) in processes of their
-    own, run ``meanwhile()`` here, and wait at most ``TIME_LIMIT``
-    seconds.  Returns each tag's exit codes (a rank killed at the limit
-    gives -9) and what ``meanwhile`` returned."""
-    ctx = mp.get_context("spawn")
-    jobs, tags = [], []
-    for tag, (fn, world, args) in groups.items():
-        port = _free_port()
-        for r in range(max(world, 1)):
-            jobs.append((fn.__name__, world, r, port, args))
-            tags.append(tag)
-    procs = [ctx.Process(target=_entry, args=(i, jobs))
-             for i in range(len(jobs))]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + TIME_LIMIT
-    try:
-        found = meanwhile()
-        for p in procs:
-            p.join(max(0.0, deadline - time.monotonic()))
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-    codes = {tag: [] for tag in groups}
-    for tag, p in zip(tags, procs):
-        codes[tag].append(p.exitcode)
-    return codes, found
 
 
 def _save(path, obj):
@@ -145,15 +89,16 @@ def runs(split, tmp_path_factory):
     """Every spawned job of this file, started at once (the loss on two
     ranks; each stage's two data-parallel ranks and its world-size-1
     run; the train CLI on two ranks) while JAX's loss is computed here:
-    the output directory, each job's exit codes and JAX's losses."""
+    the output directory, the jobs (their exit codes and seconds) and
+    JAX's losses."""
     out = str(tmp_path_factory.mktemp("ranks"))
     groups = {"loss": (_loss_rank, 2, (out,)),
               "cli": (_cli_rank, 2, (out, split))}
     for stage in ("stage2", "stage3"):
         groups[stage] = (_ddp_steps, 2, (out, stage, split))
         groups[stage + "_world1"] = (_world_one, 1, (out, stage, split))
-    codes, want = _spawn(groups, _jax_loss)
-    return out, codes, want
+    jobs = spawn(groups, TIME_LIMIT, _jax_loss)
+    return out, jobs, jobs.found
 
 
 def _options(stage, root):
@@ -301,8 +246,8 @@ def _jax_loss():
 
 
 def test_loss_with_a_group_matches_jax_pmean(runs):
-    out, codes, want = runs
-    assert codes["loss"] == [0, 0]
+    out, jobs, want = runs
+    jobs.check("loss")
     for r in range(2):
         got = _read(os.path.join(out, f"loss{r}.json"))
         for k, w in want.items():
@@ -430,8 +375,8 @@ def _world_one(out, stage, root):
 
 @pytest.mark.parametrize("stage", ["stage2", "stage3"])
 def test_data_parallel_step(runs, stage):
-    out, codes, _ = runs
-    assert codes[stage] == [0, 0] and codes[stage + "_world1"] == [0]
+    out, jobs, _ = runs
+    jobs.check(stage, stage + "_world1")
     ranks = [_read(os.path.join(out, f"{stage}_rank{r}.json"))
              for r in range(2)]
     assert len(ranks[0]["digests"]) == 2
@@ -477,8 +422,8 @@ def _one_process_eval(out, root):
 
 
 def test_train_cli_on_two_ranks(runs):
-    out, codes, _ = runs
-    assert codes["cli"] == [0, 0]
+    out, jobs, _ = runs
+    jobs.check("cli")
     ranks = [_read(os.path.join(out, f"cli{r}.json")) for r in range(2)]
     assert [r["steps"] for r in ranks] == [[1, 2], [1, 2]]  # 5 // 2 a rank
     assert sorted(os.listdir(os.path.join(out, "wd0"))) == [

@@ -1,7 +1,8 @@
 """Parity of the port's layers and 2D tower with the JAX package
 (``cnrma_tpu/models/layers.py``, ``resnet_fpn.py``), fp32 on the CPU.
 
-Inputs come from numpy seeds, parameters from the flax init (norm
+Inputs come from numpy seeds, parameters from the flax init (the whole
+tower's: the port's default initialisation as flax variables; norm
 statistics randomized so eval norms are not identities) carried over by
 ``cnrma_torch.bridge.from_flax``.  Tolerances: 1e-6 for elementwise
 layers (same fp32 operations), 1e-5 for one convolution (sum order), and
@@ -19,6 +20,7 @@ from cnrma_torch.models.resnet_fpn import ResNetFPN2D as TorchTower
 from cnrma_tpu.models import layers as jl
 from cnrma_tpu.models.resnet_fpn import ResNetFPN2D as JaxTower
 from test_torch_bridge import randomize_stats, torch_module
+from test_torch_test_cli import _flax_tree_from_torch
 from _torch_threads import _few_threads  # noqa: F401
 
 
@@ -96,9 +98,10 @@ def tower():
     images = (np.random.RandomState(0).rand(2, 64, 64, 3) * 255
               - 120).astype(np.float32)
     module = JaxTower()
-    variables = jax.jit(lambda x: module.init(
-        jax.random.PRNGKey(0), x, train=False))(jnp.asarray(images))
-    variables = randomize_stats(variables, 1)
+    torch.manual_seed(0)
+    variables = randomize_stats(_flax_tree_from_torch(
+        TorchTower().state_dict(), jax.eval_shape(lambda x: module.init(
+            jax.random.PRNGKey(0), x, train=False), jnp.asarray(images))), 1)
     want = np.asarray(jax.jit(lambda v, x: module.apply(v, x, train=False))(
         variables, jnp.asarray(images)))
     return images, variables, want

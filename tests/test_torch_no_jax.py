@@ -12,6 +12,8 @@ import os
 import subprocess
 import sys
 
+from _torch_spawn import run_script
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SCRIPT = """
@@ -134,27 +136,21 @@ print("NO_JAX_OK")
 """
 
 
-# The scripts' torch and BLAS threads: the test lane runs six pytest
-# workers on eight cores, each with its own torch and XLA thread pools, and
-# a child with a thread a core ran 15 times slower there than alone (the
-# recipe took 21 s alone and hit its 300 s limit in the lane).
-CHILD_THREADS = "2"
+TIME_LIMIT = 300            # seconds a script may take
 
 
-def _run(script: str) -> subprocess.CompletedProcess:
+def _run(name: str, script: str) -> subprocess.CompletedProcess:
     """``script`` in a fresh interpreter from the repository's root, its
-    threads capped at ``CHILD_THREADS``, within 300 s."""
+    threads capped (``_torch_spawn.run_script``), within ``TIME_LIMIT``."""
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
-    env.update(OMP_NUM_THREADS=CHILD_THREADS, MKL_NUM_THREADS=CHILD_THREADS,
-               OPENBLAS_NUM_THREADS=CHILD_THREADS)
-    return subprocess.run(
-        [sys.executable, "-c", script.replace("REPO", repr(REPO))],
-        capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
+    return run_script(name, [sys.executable, "-c",
+                             script.replace("REPO", repr(REPO))],
+                      TIME_LIMIT, env=env, cwd=REPO)
 
 
 def test_port_runs_without_jax():
-    proc = _run(_SCRIPT)
+    proc = _run("no_jax", _SCRIPT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "NO_JAX_OK" in proc.stdout
 
@@ -249,7 +245,7 @@ def test_three_stage_recipe_runs_without_jax():
     one stage-3 step from it with depth marching and the test CLI on its
     checkpoint, at cut sizes on the CPU with JAX, flax and the JAX package
     blocked."""
-    proc = _run(_RECIPE)
+    proc = _run("recipe", _RECIPE)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "RECIPE_OK" in proc.stdout
 
@@ -339,7 +335,7 @@ def test_arkit_path_runs_without_jax():
     stage-2.1 dump of ``configs/arkit_middle.py`` from their checkpoint
     and one stage-2 step on it (``configs/fcaf3d_middle_arkit.py``); one stage-3
     step (finite losses, ``loss_bbox`` the rotated IoU's)."""
-    proc = _run(_ARKIT)
+    proc = _run("arkit", _ARKIT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "ARKIT_OK" in proc.stdout
 
@@ -403,6 +399,6 @@ def test_scannet_preparation_runs_without_jax():
     ``.sens``, ``generate_tsdf --device cpu`` (and its default ``cuda:0``
     refusing without a card), ``batch_load_scannet_data`` and
     ``aggregate_data`` for train and val."""
-    proc = _run(_PREP)
+    proc = _run("prep", _PREP)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "PREP_OK" in proc.stdout

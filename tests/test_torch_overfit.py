@@ -41,7 +41,10 @@ from cnrma_torch.tools import overfit_check as port_check
 from cnrma_torch.tools import overfit_full as port_tool
 from tools import overfit_check as jax_check
 from tools import overfit_full as jax_tool
+from _torch_spawn import call, tool_run
 from _torch_threads import _few_threads  # noqa: F401
+
+TIME_LIMIT = 480            # seconds a child's tool run may take
 
 
 @pytest.mark.parametrize("yaw_max", [0.0, 0.6], ids=["axis", "yaw"])
@@ -83,11 +86,14 @@ def test_build_batch_matches_the_jax_tool():
         np.testing.assert_array_equal(gl, wl)
 
 
-def test_two_steps_on_the_cpu_end_with_finite_losses(capsys):
+def test_two_steps_on_the_cpu_end_with_finite_losses(tmp_path):
     """``--steps 2 --device cpu`` (two views a scene): two steps, each on
     both rooms as one batch, as the JAX tool trains them; finite losses,
-    the PASS line printed, and the rule's inputs returned."""
-    out = port_tool.run(["--steps", "2", "--views", "2", "--device", "cpu"])
+    the PASS line printed, and the rule's inputs returned.  The run takes
+    a child process (``_torch_spawn.call``)."""
+    out, printed = call("overfit_full", tool_run, (
+        port_tool.__name__, ["--steps", "2", "--views", "2", "--device",
+                             "cpu"]), TIME_LIMIT, tmp_path)
     assert out["steps"] == 2
     for k in ("first", "final", "first_recon", "final_recon"):
         assert math.isfinite(out[k]) and out[k] > 0, k
@@ -95,7 +101,7 @@ def test_two_steps_on_the_cpu_end_with_finite_losses(capsys):
     assert out["ok"] == (out["final"] < 0.6 * out["first"]
                          and out["final_recon"] < 0.5 * out["first_recon"]
                          and out["mAP_0.25"] >= 0.5)
-    assert "full overfit check:" in capsys.readouterr().out
+    assert "full overfit check:" in printed
 
 
 # --- the detector-only check -------------------------------------------------
@@ -290,15 +296,17 @@ def test_check_adamw_steps_match_optax(check_steps):
         assert worst[0] < ADAMW_TOL, (i, worst)
 
 
-def test_check_two_steps_on_the_cpu(capsys, monkeypatch):
+def test_check_two_steps_on_the_cpu(monkeypatch, tmp_path):
     """``--steps 2 --score-every 1 --device cpu`` with
     ``CNRMA_CAPACITY_DEBUG=1``: two steps on both scenes as one batch,
     finite losses, the PASS line printed, the rule's inputs returned, a
     reading after each step whose last is the final score, and each
-    capacity site's largest fill within its capacity."""
+    capacity site's largest fill within its capacity.  The run takes a
+    child process (``_torch_spawn.call``)."""
     monkeypatch.setenv("CNRMA_CAPACITY_DEBUG", "1")
-    out = port_check.run(["--steps", "2", "--score-every", "1",
-                          "--device", "cpu"])
+    out, printed = call("overfit_check", tool_run, (
+        port_check.__name__, ["--steps", "2", "--score-every", "1",
+                              "--device", "cpu"]), TIME_LIMIT, tmp_path)
     assert out["steps"] == 2 and len(out["losses"]) == 2
     for k in ("first", "final"):
         assert math.isfinite(out[k]) and out[k] > 0, k
@@ -312,7 +320,7 @@ def test_check_two_steps_on_the_cpu(capsys, monkeypatch):
     assert "voxelize(stride 1)" in out["fills"], out["fills"]
     assert all(0 < n <= cap for n, cap in out["fills"].values()), \
         out["fills"]
-    assert "overfit check:" in capsys.readouterr().out
+    assert "overfit check:" in printed
 
 
 def test_check_eval_forward_at_8cm_matches_jax(monkeypatch):

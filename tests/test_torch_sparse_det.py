@@ -22,6 +22,7 @@ from cnrma_torch.ops.voxelize import SENTINEL_KEY
 from cnrma_tpu.models import fcaf3d as jdet
 from cnrma_tpu.ops import sparse as jsp
 from test_torch_bridge import randomize_stats, torch_module
+from test_torch_test_cli import _flax_tree_from_torch
 from _torch_threads import _few_threads  # noqa: F401
 
 
@@ -251,18 +252,20 @@ def detector():
     module = jdet.FCAF3DDetector(n_classes=3, voxel_size=0.05,
                                  pts_threshold=PTS_THRESHOLD, nms_pre=16,
                                  capacities=jdet.DetectionCapacities(**CAPS))
-    variables = jax.jit(lambda *a: module.init(
-        jax.random.PRNGKey(0), *a, train=False))(*args)
-    variables = randomize_stats(variables, 11)
+    torch.manual_seed(0)
+    port = tdet.FCAF3DDetector(
+        in_channels=32, n_classes=3, voxel_size=0.05,
+        pts_threshold=PTS_THRESHOLD, nms_pre=16,
+        capacities=tdet.DetectionCapacities(**CAPS))
+    variables = randomize_stats(_flax_tree_from_torch(
+        port.state_dict(), jax.eval_shape(lambda *a: module.init(
+            jax.random.PRNGKey(0), *a, train=False), *args)), 11)
 
     def run(v, *a):
         outs = module.apply(v, *a, train=False)
         return outs, module.get_bboxes(outs)
     levels, boxes = jax.device_get(jax.jit(run)(variables, *args))
-    port = torch_module(tdet.FCAF3DDetector(
-        in_channels=32, n_classes=3, voxel_size=0.05,
-        pts_threshold=PTS_THRESHOLD, nms_pre=16,
-        capacities=tdet.DetectionCapacities(**CAPS)), variables)
+    port = torch_module(port, variables)
     with torch.no_grad():
         tlevels = port(_t(pts[None]), _t(feats[None]), _t(valid[None]))
         tboxes = port.get_bboxes(tlevels)

@@ -21,6 +21,7 @@ import torch
 
 from test_data import make_synthetic_scannet
 from test_tools_contract import _write_scene
+from _torch_spawn import CHILD_ENV
 from _torch_threads import _few_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -179,15 +180,19 @@ def test_cli_scene_alone_equals_scene_in_run(cli_run):
 @pytest.fixture(scope="module")
 def sharded_run(cli_run, tmp_path_factory):
     """The CLI over two CPU processes (``--n-devices 2``) with
-    ``--max-scenes 3``: rank 0 writes scenes 0 and 2, rank 1 scene 1."""
+    ``--max-scenes 3``: rank 0 writes scenes 0 and 2, rank 1 scene 1; the
+    processes' OpenMP threads passive (``_torch_spawn.CHILD_ENV``)."""
     from cnrma_torch.tools import test as test_cli
     _, ckpt, _, options = cli_run
     root = tmp_path_factory.mktemp("sharded")
     save, mid = str(root / "res"), str(root / "mid")
-    records = test_cli.main([CONFIG, ckpt, "--device", "cpu",
-                             "--n-devices", "2", "--max-scenes", "3",
-                             "--save-path", save, "--middle-save-path", mid,
-                             "--cfg-options", *options])
+    with pytest.MonkeyPatch.context() as mp_:
+        for k, v in CHILD_ENV.items():
+            mp_.setenv(k, v)
+        records = test_cli.main([CONFIG, ckpt, "--device", "cpu",
+                                 "--n-devices", "2", "--max-scenes", "3",
+                                 "--save-path", save, "--middle-save-path",
+                                 mid, "--cfg-options", *options])
     return save, mid, records
 
 

@@ -1,11 +1,12 @@
 """Parity of the port's 3D U-Net and TSDF head with the JAX package
 (``cnrma_tpu/models/unet3d.py``, ``tsdf_head.py``), fp32 on the CPU.
 
-Parameters are the flax init with random norm statistics and scales (so
-the zero-initialized residual BNs are not zero) carried over by the
-bridge.  Tolerances: 1e-4 of each output's scale for the U-Net (about
-thirty 3D convolutions summed in another order), 1e-5 absolute for the
-head (one 1x1x1 convolution and tanh on the shared inputs).
+Parameters are the port's default initialisation (the U-Net's) or the
+flax init (the head's) with random norm statistics and scales (so the
+zero-initialized residual BNs are not zero), carried over by the bridge.
+Tolerances: 1e-4 of each output's scale for the U-Net (about thirty 3D
+convolutions summed in another order), 1e-5 absolute for the head (one
+1x1x1 convolution and tanh on the shared inputs).
 """
 
 import jax
@@ -19,6 +20,7 @@ from cnrma_torch.models.unet3d import UNet3D as TorchUNet
 from cnrma_tpu.models.tsdf_head import TSDFHead as JaxHead
 from cnrma_tpu.models.unet3d import UNet3D as JaxUNet
 from test_torch_bridge import randomize_stats, torch_module
+from test_torch_test_cli import _flax_tree_from_torch
 from _torch_threads import _few_threads  # noqa: F401
 
 
@@ -26,9 +28,10 @@ from _torch_threads import _few_threads  # noqa: F401
 def unet():
     x = np.random.RandomState(0).rand(1, 16, 16, 16, 32).astype(np.float32)
     module = JaxUNet()
-    variables = jax.jit(lambda v: module.init(
-        jax.random.PRNGKey(0), v, train=False))(jnp.asarray(x))
-    variables = randomize_stats(variables, 1)
+    torch.manual_seed(0)
+    variables = randomize_stats(_flax_tree_from_torch(
+        TorchUNet().state_dict(), jax.eval_shape(lambda v: module.init(
+            jax.random.PRNGKey(0), v, train=False), jnp.asarray(x))), 1)
     want = jax.jit(lambda v, a: module.apply(v, a, train=False))(
         variables, jnp.asarray(x))
     return x, variables, [np.asarray(w) for w in want]

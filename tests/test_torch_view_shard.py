@@ -48,24 +48,23 @@ collective's plain transpose).
 
 import json
 import os
-import socket
 import sys
 import time
 
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as mp
 from torch import nn
 
 from cnrma_torch.models import layers as tl
 from cnrma_torch.parallel import dist, shard
+from _torch_spawn import free_port, spawn
 from _torch_threads import _few_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "ray_marching_scannet.py")
-TIME_LIMIT = 300            # seconds the spawned jobs may take
+TIME_LIMIT = 720            # seconds the spawned jobs may take
 FAULTS = ("no_bn_sync", "sum_copies")
 SLAB_TOL = 2e-5
 JAX_UNET_TOL = 1e-4
@@ -96,60 +95,9 @@ CLI_LOSS_RTOL = 1e-4
 
 # --- spawning ranks ----------------------------------------------------------
 
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _entry(index, jobs):
-    """Process ``index`` of a spawn: its job ``(name, world, rank, port,
-    args)``; a job with a world runs as that rank (``torchrun``'s
-    environment on ``localhost:port``)."""
-    name, world, rank, port, args = jobs[index]
-    torch.set_num_threads(2)
-    if world:
-        os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
-                          RANK=str(rank), WORLD_SIZE=str(world),
-                          LOCAL_RANK=str(rank))
-    globals()[name](*args)
-
-
-def _spawn(groups, meanwhile):
-    """Start ``groups`` (``{tag: (function, world, args)}``; world 0: one
-    process without a group) at once, run ``meanwhile()`` here, wait at
-    most ``TIME_LIMIT`` seconds; each tag's exit codes (-9: killed at the
-    limit) and what ``meanwhile`` returned."""
-    ctx = mp.get_context("spawn")
-    jobs, tags = [], []
-    for tag, (fn, world, args) in groups.items():
-        port = _free_port()
-        for r in range(max(world, 1)):
-            jobs.append((fn.__name__, world, r, port, args))
-            tags.append(tag)
-    procs = [ctx.Process(target=_entry, args=(i, jobs))
-             for i in range(len(jobs))]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + TIME_LIMIT
-    try:
-        found = meanwhile()
-        for p in procs:
-            p.join(max(0.0, deadline - time.monotonic()))
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-    codes = {tag: [] for tag in groups}
-    for tag, p in zip(tags, procs):
-        codes[tag].append(p.exitcode)
-    return codes, found
-
-
 def _join():
-    """This rank's world group from the environment ``_entry`` set."""
+    """This rank's world group from the environment
+    ``_torch_spawn._entry`` set."""
     group, _ = dist.init_from_env("cpu")
     return group
 
@@ -552,6 +500,10 @@ STEP_VARIANTS = {"depth": (dict(ray_marching_type="depth"), (0.8, 0.8, 0.2),
                            "no_bn_sync"),
                  "arkit": (dict(n_classes=17, n_reg_outs=8, with_yaw=True),
                            (0.8, 0.8, 0.8), "sum_copies")}
+# The steps' jobs, a pair of ranks each, so that neither runs all four
+# models one after another: the CNRMA step with both planted faults and the
+# Atlas step, and the two variants.
+STEP_JOBS = {"step": ("cnrma", "atlas"), "variants": tuple(STEP_VARIANTS)}
 
 
 def _step_case(centre=(0.8, 0.8, 0.8), **kw):
@@ -644,52 +596,43 @@ def _digest(res):
     return h.hexdigest()
 
 
-def _step_rank(out):
-    """A rank of two: on rank 0 the one-process step; then the
-    view-sharded step, clean and with each planted fault, held against the
-    one-process step on rank 0 (``_step_readings``); writes rank 0's
-    readings and each rank's hash of the clean step's gradients and
-    statistics."""
-    model, batch = _step_case()
-    case = (model, batch, {k: v.clone() for k, v in
-                           model.state_dict().items()})
-    rank = int(os.environ["RANK"])
-    want = _step(case, None) if rank == 0 else None
+def _step_kind(kind):
+    """A kind of step (``STEP_JOBS``): its case, its planted faults and
+    the readings that hold it."""
+    if kind == "cnrma":
+        return _step_case(), FAULTS, _step_readings
+    if kind == "atlas":
+        return _atlas_case(), ("sum_copies",), _atlas_readings
+    kw, centre, planted = STEP_VARIANTS[kind]
+    return _step_case(centre, **kw), (planted,), _step_readings
+
+
+def _step_rank(out, job):
+    """A rank of two, for each kind of step of ``job``: on rank 0 the
+    one-process step; then the view-sharded step, clean and with each
+    planted fault, held against the one-process step on rank 0; writes
+    rank 0's readings and one-process losses, and each rank's hash of the
+    clean step's gradients and statistics."""
     group = _join()
-    report = {"readings": {}}
-    for fault in (None,) + FAULTS:
-        got = _step(case, group, fault)
-        if fault is None:
-            report["digest"] = _digest(got)
-        if want is not None:
-            report["readings"][str(fault)] = _step_readings(got, want)
-            report["loss_cls"] = want["losses"]["loss_cls"]
-        del got
-    model, batch = _atlas_case()
-    case = (model, batch, {k: v.clone() for k, v in
-                           model.state_dict().items()})
-    want = _step(case, None) if rank == 0 else None
-    report["atlas"] = {}
-    for fault in (None, "sum_copies"):
-        got = _step(case, group, fault)
-        if fault is None:
-            report["atlas_digest"] = _digest(got)
-        if want is not None:
-            report["atlas"][str(fault)] = _atlas_readings(got, want)
-    for kind, (kw, centre, planted) in STEP_VARIANTS.items():
-        model, batch = _step_case(centre, **kw)
+    rank = dist.rank(group)
+    report = {}
+    for kind in STEP_JOBS[job]:
+        (model, batch), faults, readings = _step_kind(kind)
         case = (model, batch, {k: v.clone() for k, v in
                                model.state_dict().items()})
         want = _step(case, None) if rank == 0 else None
         report[kind] = {}
-        for fault in (None, planted):
+        for fault in (None,) + faults:
             got = _step(case, group, fault)
             if fault is None:
                 report[kind + "_digest"] = _digest(got)
             if want is not None:
-                report[kind][str(fault)] = _step_readings(got, want)
-                report[kind + "_losses"] = want["losses"]
-    with open(os.path.join(out, f"step_{rank}.json"), "w") as f:
+                report[kind][str(fault)] = readings(got, want)
+            del got
+        if want is not None:
+            report[kind + "_losses"] = want["losses"]
+        del case, want
+    with open(os.path.join(out, f"{job}_{rank}.json"), "w") as f:
         json.dump(report, f)
     dist.shutdown(group)
 
@@ -833,14 +776,15 @@ def _cli_case_paths(root):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every spawned job of this file, started at once, while JAX's
-    references are computed here: the output directory, each job's exit
-    codes and JAX's results."""
+    references are computed here: the output directory, the jobs (their
+    exit codes and seconds) and JAX's results."""
     out = str(tmp_path_factory.mktemp("view_shard"))
     root = str(tmp_path_factory.mktemp("scenes"))
     groups = {"small": (_small_rank, 2, (out,)),
-              "step": (_step_rank, 2, (out,)),
-              "cli": (_clis, 2, (out, root, "sharded", _free_port())),
+              "cli": (_clis, 2, (out, root, "sharded", free_port())),
               "alone": (_clis, 0, (out, root, "alone"))}
+    for job in STEP_JOBS:
+        groups[job] = (_step_rank, 2, (out, job))
 
     def jax_side():
         case = os.path.join(root, "cli_case.json")
@@ -850,8 +794,8 @@ def runs(tmp_path_factory):
         return {"unet": _jax_unet(), "upsample": _jax_upsample(),
                 "mini": _jax_mini(), "volume": _jax_volume(),
                 "unet_port": _unet_full()}
-    codes, want = _spawn(groups, jax_side)
-    return out, codes, want
+    jobs = spawn(groups, TIME_LIMIT, jax_side)
+    return out, jobs, jobs.found
 
 
 def _jax_upsample():
@@ -889,16 +833,16 @@ def _slab_failures(got, want, port):
 
 
 def test_slab_unet_and_head_match_jax(runs):
-    out, codes, want = runs
-    assert codes["small"] == [0, 0]
+    out, jobs, want = runs
+    jobs.check("small")
     for rank in _small(out):
         assert not _slab_failures(rank["unet"], want["unet"],
                                   want["unet_port"])
 
 
 def test_halo_upsample_matches_jax(runs):
-    out, codes, want = runs
-    assert codes["small"] == [0, 0]
+    out, jobs, want = runs
+    jobs.check("small")
     for rank in _small(out):
         np.testing.assert_allclose(rank["upsample"], want["upsample"],
                                    atol=UPSAMPLE_TOL, rtol=0)
@@ -907,8 +851,8 @@ def test_halo_upsample_matches_jax(runs):
 def test_boundary_gradients_match_jax(runs):
     """The miniature's reduced gradients on each rank equal JAX's
     unsharded ``jax.grad`` (and the port's one-process gradients)."""
-    out, codes, want = runs
-    assert codes["small"] == [0, 0]
+    out, jobs, want = runs
+    jobs.check("small")
     model, imgs, target = mini_case()
     model.single(torch.from_numpy(imgs).permute(0, 3, 1, 2),
                  torch.from_numpy(target)).backward()
@@ -919,8 +863,8 @@ def test_boundary_gradients_match_jax(runs):
 
 def test_partial_volume_matches_jax(runs):
     from cnrma_torch.ops.backproject import volume_accum_plain
-    out, codes, want = runs
-    assert codes["small"] == [0, 0]
+    out, jobs, want = runs
+    jobs.check("small")
     projs, feats, valid = volume_case()
     alone, _, seen = volume_accum_plain(
         torch.from_numpy(projs), torch.from_numpy(feats),
@@ -952,8 +896,8 @@ def test_volume_sum_mode_is_the_undivided_sum():
 def test_planted_faults_break_the_boundary_checks(runs, fault):
     """Unsynced norms break the slab U-Net's parity and the miniature's
     gradients; a boundary that sums the n copies breaks the gradients."""
-    out, codes, want = runs
-    assert codes["small"] == [0, 0]
+    out, jobs, want = runs
+    jobs.check("small")
     for rank in _small(out, fault):
         assert _mini_failures(rank["mini"], want["mini"])
         if fault == "no_bn_sync":
@@ -961,30 +905,33 @@ def test_planted_faults_break_the_boundary_checks(runs, fault):
                                   want["unet_port"])
 
 
-def _step_report(out, rank):
-    with open(os.path.join(out, f"step_{rank}.json")) as f:
-        return json.load(f)
+def _step_reports(runs, job):
+    """Both ranks' reports of a ``STEP_JOBS`` job, once it ended well."""
+    out, jobs, _ = runs
+    jobs.check(job)
+    reports = []
+    for r in range(2):
+        with open(os.path.join(out, f"{job}_{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports
 
 
 def test_view_sharded_step_matches_one_process(runs):
     """The tiny CNRMA's view-sharded step (2 ranks, 1 view each, X-slabs
     of 8) against the one-process step at ``STEP_LIMITS``; both ranks
     end with the same gradients and statistics."""
-    out, codes, _ = runs
-    assert codes["step"] == [0, 0]
-    ranks = [_step_report(out, r) for r in range(2)]
-    assert ranks[0]["loss_cls"] > 0 and not ranks[1]["readings"]
-    r = ranks[0]["readings"]["None"]
+    ranks = _step_reports(runs, "step")
+    assert ranks[0]["cnrma_losses"]["loss_cls"] > 0
+    assert not ranks[1]["cnrma"]
+    r = ranks[0]["cnrma"]["None"]
     print("view-sharded step readings:", r)
     assert not _step_failures(r), r
-    assert ranks[0]["digest"] == ranks[1]["digest"]
+    assert ranks[0]["cnrma_digest"] == ranks[1]["cnrma_digest"]
 
 
 @pytest.mark.parametrize("fault", FAULTS)
 def test_planted_faults_break_the_step_limits(runs, fault):
-    out, codes, _ = runs
-    assert codes["step"] == [0, 0]
-    r = _step_report(out, 0)["readings"][fault]
+    r = _step_reports(runs, "step")[0]["cnrma"][fault]
     print(f"{fault}: breaks {_step_failures(r)}; readings {r}")
     assert _step_failures(r), r
 
@@ -993,9 +940,7 @@ def test_view_sharded_atlas_step_matches_one_process(runs):
     """Stage 1's step split over two ranks (1 view each, X-slabs of 8)
     against the one-process ``Atlas`` step at ``ATLAS_LIMITS``; both ranks
     end with the same gradients and statistics."""
-    out, codes, _ = runs
-    assert codes["step"] == [0, 0]
-    ranks = [_step_report(out, r) for r in range(2)]
+    ranks = _step_reports(runs, "step")
     assert not ranks[1]["atlas"]
     r = ranks[0]["atlas"]["None"]
     print("view-sharded Atlas step readings:", r)
@@ -1006,9 +951,7 @@ def test_view_sharded_atlas_step_matches_one_process(runs):
 def test_planted_boundary_fault_breaks_the_atlas_limits(runs):
     """The boundary that sums the n copies of the replicated cotangent
     breaks the Atlas step's gradient limits."""
-    out, codes, _ = runs
-    assert codes["step"] == [0, 0]
-    r = _step_report(out, 0)["atlas"]["sum_copies"]
+    r = _step_reports(runs, "step")[0]["atlas"]["sum_copies"]
     print(f"sum_copies, Atlas: breaks {_atlas_failures(r)}; readings {r}")
     assert {"unet_head", "tower"} <= set(_atlas_failures(r)), r
 
@@ -1019,9 +962,7 @@ def test_view_sharded_variant_step_matches_one_process(runs, kind):
     ARKit's 7-DoF head (``STEP_VARIANTS``), on two ranks against the
     one-process step at ``STEP_LIMITS``; the batch assigns positives;
     both ranks end with the same gradients and statistics."""
-    out, codes, _ = runs
-    assert codes["step"] == [0, 0]
-    ranks = [_step_report(out, r) for r in range(2)]
+    ranks = _step_reports(runs, "variants")
     assert not ranks[1][kind]
     losses = ranks[0][kind + "_losses"]
     assert losses["loss_cls"] > 0 and losses["loss_bbox"] > 0
@@ -1036,10 +977,8 @@ def test_planted_fault_breaks_the_variant_step_limits(runs, kind):
     """Unsynced batch norms break the depth-marching step's limits, the
     boundary that sums the copies of the replicated cotangent the ARKit
     step's."""
-    out, codes, _ = runs
-    assert codes["step"] == [0, 0]
     fault = STEP_VARIANTS[kind][2]
-    r = _step_report(out, 0)[kind][fault]
+    r = _step_reports(runs, "variants")[0][kind][fault]
     print(f"{fault}, {kind}: breaks {_step_failures(r)}; readings {r}")
     assert _step_failures(r), r
 
@@ -1053,8 +992,8 @@ def test_cli_view_shard_writes_the_one_rank_files(runs):
     """``--view-shard`` on two ranks: rank 0 writes every scene and rank 1
     none; each scene's TSDF and raw boxes are the one-rank run's within
     ``CLI_TOL`` of their scale (the volume's sum is split in two)."""
-    out, codes, _ = runs
-    assert codes["cli"] == [0, 0] and codes["alone"] == [0]
+    out, jobs, _ = runs
+    jobs.check("cli", "alone")
     with open(os.path.join(out, "cli_sharded_0.json")) as f:
         rank0 = json.load(f)
     with open(os.path.join(out, "cli_sharded_1.json")) as f:
@@ -1085,8 +1024,8 @@ def test_train_cli_view_shards_step_matches_one_process(runs):
     group, so both ranks here score the split alike) within
     ``CLI_LOSS_RTOL`` of the one-process scores; rank 0 writes the step's
     checkpoint and ``best.pt``."""
-    out, codes, _ = runs
-    assert codes["cli"] == [0, 0] and codes["alone"] == [0]
+    out, jobs, _ = runs
+    jobs.check("cli", "alone")
     got = []
     for name in ("cli_sharded_0", "cli_sharded_1", "cli_alone_0"):
         with open(os.path.join(out, name + ".json")) as f:
