@@ -1,0 +1,10 @@
+"""The benchmark's tests import ``port_bench`` and the port from the root
+of the checkout."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
